@@ -1,0 +1,75 @@
+"""JAX ``(params, batch_stats)`` trees -> the port's ``state_dict``s.
+
+The port's modules carry the JAX package's module names, so a parameter
+path maps one to one onto a ``state_dict`` key and the conversion only
+renames leaves and transposes kernels (the layouts of
+``avsep_tpu/models/torch_export.py``):
+
+* conv ``kernel [kh, kw, in, out]`` -> ``weight [out, in, kh, kw]``;
+* conv ``bias`` -> ``bias``;
+* BatchNorm ``scale`` / ``bias`` (params) and ``mean`` / ``var``
+  (batch_stats) -> ``weight`` / ``bias`` / ``running_mean`` /
+  ``running_var``, plus the ``num_batches_tracked`` buffer (0) that a
+  strict ``load_state_dict`` asks for.
+
+The trees are nested mappings of array-likes (numpy arrays, or anything
+``np.asarray`` takes); the module reads them with numpy alone.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+
+def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def state_dict_from_jax(params: Mapping, batch_stats: Mapping
+                        ) -> Dict[str, torch.Tensor]:
+    """One net's JAX ``params`` and ``batch_stats`` -> its ``state_dict``."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(path, name, value):
+        sd[".".join(path + (name,))] = torch.from_numpy(np.array(value))
+
+    for path, leaf in _leaves(params):
+        mod, name = path[:-1], path[-1]
+        if name == "kernel":
+            if leaf.ndim != 4:
+                raise ValueError(f"{'.'.join(path)}: expected a 4-D conv "
+                                 f"kernel, got shape {leaf.shape}")
+            put(mod, "weight", leaf.transpose(3, 2, 0, 1))
+        elif name == "scale":
+            put(mod, "weight", leaf)
+        elif name == "bias":
+            put(mod, "bias", leaf)
+        else:
+            raise ValueError(f"unknown parameter {'.'.join(path)}")
+    for path, leaf in _leaves(batch_stats):
+        mod, name = path[:-1], path[-1]
+        if name == "mean":
+            put(mod, "running_mean", leaf)
+            put(mod, "num_batches_tracked", np.asarray(0, np.int64))
+        elif name == "var":
+            put(mod, "running_var", leaf)
+        else:
+            raise ValueError(f"unknown batch statistic {'.'.join(path)}")
+    return sd
+
+
+def load_from_jax(nets, params: Mapping, batch_stats: Mapping) -> None:
+    """Load the JAX package's ``{"sound": ..., "frame": ...}`` params and
+    batch_stats into the port's ``Nets``, strictly."""
+    for key in ("sound", "frame"):
+        module = getattr(nets, key)
+        sd = state_dict_from_jax(params[key], batch_stats[key])
+        module.load_state_dict(sd, strict=True)

@@ -1,0 +1,213 @@
+"""Audio-visual co-localization fusion at the U-Net bottleneck.
+
+Port of ``avsep_tpu/models/fusion.py`` (reference ``models/fusion_net.py``):
+
+* **CoLoc** (``fusion_type='hidsep'``, reference ``fusion_net.py:20-110``):
+  split the max-pooled bottleneck vector into C per-source chunks, score all
+  C! chunk<->visual-map assignments with cosine or scaled-dot-sigmoid
+  attention, pick the best permutation (match loss = -best + sum(rest)),
+  attend the visual maps and broadcast per-source guidance vectors back over
+  the bottleneck.
+* **CoLoc_Sel** (``fusion_net.py:112-226``): the same, with the visual
+  feature at the argmax attention pixel as the guidance.
+
+The functions are parameter-free and keep the JAX package's channels-last
+layout: bottleneck ``x [B, h, w, D]``, stacked visual maps
+``v [C, B, H, W, D/C]``, attention maps ``[B, C, H, W]``.  The audio-only
+slot swap takes its uniforms as an input, or draws them from an explicit
+``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import NamedTuple, Optional
+
+import torch
+
+from avsep_tpu_torch.models.layers import cosine_similarity
+
+# ROADMAP.md, "Queue 1": what this port leaves for later slices
+_MIXVIS_ITEM = ("ROADMAP.md Queue 1, 'models/fusion.py: mixvis and the duet "
+                "option concat'")
+
+
+class FusionOut(NamedTuple):
+    features: Optional[torch.Tensor]     # [B, h, w, 2D] fused bottleneck
+    match_loss: Optional[torch.Tensor]   # scalar or None (AO path)
+    att_maps: Optional[torch.Tensor]     # [B, C, H, W] or None
+    match_ps: Optional[torch.Tensor] = None  # per-sample match loss [B]
+
+
+def _attend(x_pc: torch.Tensor, v: torch.Tensor, att_type: str,
+            att_temp: float = 1.0) -> torch.Tensor:
+    """Attention scores (reference fusion_net.py:27-33).
+
+    x_pc: [B, ..., Dc] audio chunk vectors; v: [B, ..., H, W, Dc] visual
+    maps broadcastable against x_pc's middle dims.  ``att_temp`` divides the
+    scores (1.0 is the reference).  Returns per-pixel scores [..., H, W].
+    """
+    xb = x_pc[..., None, None, :]
+    if att_type == "cos":
+        sim = cosine_similarity(xb, v, dim=-1)
+        return sim if att_temp == 1.0 else sim / att_temp
+    if att_type == "sig":
+        d = x_pc.shape[-1]
+        logits = torch.sum(xb * v / torch.sqrt(torch.tensor(
+            float(d), dtype=v.dtype, device=v.device)), dim=-1)
+        if att_temp != 1.0:
+            logits = logits / att_temp
+        return torch.sigmoid(logits)
+    raise ValueError(f"unknown att_type {att_type}")
+
+
+def _pool_chunks(x: torch.Tensor, C: int) -> torch.Tensor:
+    """Spatial max-pool of the bottleneck, channels split into C chunks
+    (reference fusion_net.py:24,38).  Returns [B, C, D/C]."""
+    B, _, _, D = x.shape
+    if D % C:
+        raise ValueError(
+            f"U-Net bottleneck dim {D} must be divisible by num_mix={C} "
+            f"for chunked AV fusion (pick ngf so bottleneck % num_mix == 0)")
+    g = torch.amax(x, dim=(1, 2))
+    return g.reshape(B, C, D // C)
+
+
+def _broadcast_guidance(feat: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """[B, C, Dc] -> [B, h, w, C*Dc] per-source guidance planes."""
+    B, C, Dc = feat.shape
+    return feat.reshape(B, 1, 1, C * Dc).expand(B, h, w, C * Dc)
+
+
+def _perms(C: int, device=None) -> torch.Tensor:
+    """All C! orderings as one index table [P, C] in itertools order, the
+    identity first (ties in the argmax below go to it)."""
+    return torch.tensor(list(itertools.permutations(range(C))),
+                        dtype=torch.long, device=device)
+
+
+def _perm_stack(blocks: torch.Tensor) -> torch.Tensor:
+    """[B, C, Dc] -> [B, P, C, Dc], every source ordering."""
+    return blocks[:, _perms(blocks.shape[1], blocks.device)]
+
+
+def _score_and_sort(maps: torch.Tensor):
+    """maps [B, P, C, H, W] -> (match_loss, match_ps [B], best [B],
+    att [B, C, H, W]).
+
+    score(p) = sum_c max_hw maps[p, c]; best = first argmax; match loss =
+    mean(-best_score + sum(rest)) (reference fusion_net.py:54-65).
+    """
+    scores = torch.sum(torch.amax(maps, dim=(3, 4)), dim=2)   # [B, P]
+    best = torch.argmax(scores, dim=1)                         # [B]
+    best_score = torch.gather(scores, 1, best[:, None])[:, 0]
+    rest = torch.sum(scores, dim=1) - best_score
+    match_ps = -best_score + rest
+    match_loss = torch.mean(match_ps)
+    ar = torch.arange(maps.shape[0], device=maps.device)
+    att = maps[ar, best]                                       # [B, C, H, W]
+    return match_loss, match_ps, best, att
+
+
+def _random_slot_swap(blocks: torch.Tensor, uniforms: torch.Tensor
+                      ) -> torch.Tensor:
+    """Permute the per-source audio chunks per sample (reference AO_forward,
+    fusion_net.py:96-98) from one uniform draw in [0, 1) per sample.
+
+    C = 2 swaps where ``u <= 0.5``, the reference's coin and the JAX
+    package's (so the JAX uniforms reproduce its choice exactly).  C > 2
+    picks permutation ``floor(u * C!)`` (the JAX package draws an integer
+    instead, so only the distribution agrees there).
+    """
+    B, C, Dc = blocks.shape
+    u = uniforms.to(blocks.device).reshape(B)
+    if C == 2:
+        swap = u <= 0.5
+        perm = torch.where(swap[:, None],
+                           torch.tensor([[1, 0]], device=blocks.device),
+                           torch.tensor([[0, 1]], device=blocks.device))
+    else:
+        perms = _perms(C, blocks.device)
+        pick = torch.clamp((u * perms.shape[0]).long(), max=perms.shape[0] - 1)
+        perm = perms[pick]
+    return torch.gather(blocks, 1, perm[:, :, None].expand(B, C, Dc))
+
+
+def _swap_uniforms(B: int, uniforms: Optional[torch.Tensor],
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
+    if uniforms is not None:
+        return torch.as_tensor(uniforms, dtype=torch.float32)
+    if generator is None:
+        raise ValueError("the audio-only fusion path needs swap uniforms or a "
+                         "torch.Generator")
+    return torch.rand(B, generator=generator)
+
+
+def _ao_forward(x: torch.Tensor, C: int = 2, *,
+                uniforms: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> FusionOut:
+    """Audio-only path: shuffle the per-source chunks and broadcast them as
+    the guidance (reference fusion_net.py:93-104)."""
+    B, h, w, D = x.shape
+    u = _swap_uniforms(B, uniforms, generator)
+    blocks = _random_slot_swap(_pool_chunks(x, C), u)
+    guidance = _broadcast_guidance(blocks, h, w)
+    return FusionOut(torch.cat([guidance, x], dim=-1), None, None)
+
+
+def coloc(x: torch.Tensor, v: Optional[torch.Tensor], *,
+          att_type: str = "cos", option: Optional[str] = None,
+          select: bool = False, n_sources: int = 2, att_temp: float = 1.0,
+          uniforms: Optional[torch.Tensor] = None,
+          generator: Optional[torch.Generator] = None) -> FusionOut:
+    """CoLoc / CoLoc_Sel fusion (reference fusion_net.py:20-226).
+
+    Args:
+      x: bottleneck audio features [B, h, w, D].
+      v: stacked visual maps [C, B, H, W, D/C], or None (audio-only batch).
+      option: must be None; the duet concat option comes with a later slice.
+      select: False -> CoLoc (attention-pooled guidance); True -> CoLoc_Sel
+        (argmax-pixel guidance, reference fusion_net.py:163-169).
+      n_sources: chunk count of the audio-only branch.
+      uniforms, generator: the audio-only slot swap's draw (one of them is
+        needed when ``v`` is None).
+    """
+    if option is not None:
+        raise NotImplementedError(
+            f"fusion option {option!r} is not ported yet ({_MIXVIS_ITEM})")
+    if v is None:
+        return _ao_forward(x, n_sources, uniforms=uniforms,
+                           generator=generator)
+
+    B, h, w, D = x.shape
+    C = v.shape[0]
+    blocks = _pool_chunks(x, C)                       # [B, C, Dc]
+    x_t = _perm_stack(blocks)                         # [B, P, C, Dc]
+    v_cat = v.movedim(0, 1)                           # [B, C, H, W, Dc]
+    maps = _attend(x_t, v_cat[:, None], att_type, att_temp)  # [B,P,C,H,W]
+    match_loss, match_ps, _, att = _score_and_sort(maps)
+
+    if select:
+        _, _, H, W, Dc = v_cat.shape
+        max_ind = torch.argmax(att.reshape(B, C, H * W), dim=-1)  # [B, C]
+        v_flat = v_cat.reshape(B, C, H * W, Dc)
+        feat = torch.gather(
+            v_flat, 2, max_ind[:, :, None, None].expand(B, C, 1, Dc))[:, :, 0]
+    else:
+        feat = torch.amax(v_cat * att[..., None], dim=(2, 3))     # [B, C, Dc]
+
+    guidance = _broadcast_guidance(feat, h, w)
+    return FusionOut(torch.cat([guidance, x], dim=-1), match_loss, att,
+                     match_ps)
+
+
+def get_fusion(fusion_type: str):
+    """Dispatch like reference ``get_fusion_net`` (fusion_net.py:7-18)."""
+    if fusion_type in ("hidsep", "con_motion", "share", "CoLoc_ClipAtt"):
+        return lambda x, v, **kw: coloc(x, v, select=False, **kw)
+    if fusion_type == "CoLoc_Sel":
+        return lambda x, v, **kw: coloc(x, v, select=True, **kw)
+    if fusion_type == "MixVis":
+        raise NotImplementedError(
+            f"fusion_type MixVis is not ported yet ({_MIXVIS_ITEM})")
+    raise ValueError(f"unknown fusion_type {fusion_type}")

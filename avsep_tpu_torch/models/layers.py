@@ -1,0 +1,148 @@
+"""Shared layers of the U-Net, with the reference's initializers.
+
+Port of ``avsep_tpu/models/layers.py``.  The reference's building blocks
+(``models/audio_net.py:49-122``) are Conv2d(4x4, stride 2, pad 1)
+downsamplers, Conv2d(3x3, pad 1) up-projections, BatchNorm2d,
+LeakyReLU(0.2) / ReLU and ``nn.Upsample(scale_factor=2, mode='bilinear',
+align_corners=True)``.  Modules here are NCHW.  Each wraps its torch layer
+under the name the JAX package gives it (``conv``, ``bn``), so a JAX
+parameter path maps one to one onto a ``state_dict`` key
+(``models/from_jax.py``).
+
+The initializers take an explicit CPU ``torch.Generator`` and draw on the
+CPU, so the same seed gives the same weights on every device.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+# ---------------------------------------------------------------- initializers
+
+
+def _draw(shape, generator: torch.Generator, kind: str) -> torch.Tensor:
+    if kind == "normal":
+        return torch.randn(shape, generator=generator)
+    return torch.rand(shape, generator=generator)
+
+
+@torch.no_grad()
+def normal_init_(t: torch.Tensor, std: float,
+                 generator: torch.Generator) -> None:
+    """Reference ``ModelBuilder.weights_init``: Conv ~ N(0, 0.001)
+    (``models/__init__.py:33-41``)."""
+    t.copy_(std * _draw(t.shape, generator, "normal"))
+
+
+@torch.no_grad()
+def bn_scale_init_(t: torch.Tensor, generator: torch.Generator) -> None:
+    """BatchNorm weight ~ N(1.0, 0.02) (reference
+    ``models/__init__.py:37-39``)."""
+    t.copy_(1.0 + 0.02 * _draw(t.shape, generator, "normal"))
+
+
+@torch.no_grad()
+def torch_conv_bias_init_(t: torch.Tensor, fan_in: int,
+                          generator: torch.Generator) -> None:
+    """PyTorch Conv2d default bias: U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
+    bound = 1.0 / math.sqrt(fan_in)
+    t.copy_((2.0 * _draw(t.shape, generator, "uniform") - 1.0) * bound)
+
+
+@torch.no_grad()
+def he_normal_init_(t: torch.Tensor, generator: torch.Generator) -> None:
+    """Variance scaling 2.0 on fan_out, normal: the JAX package's ResNet
+    conv init.  ``t`` is a conv weight ``[out, in, kh, kw]``."""
+    fan_out = t.shape[0] * t.shape[2] * t.shape[3]
+    t.copy_(math.sqrt(2.0 / fan_out) * _draw(t.shape, generator, "normal"))
+
+
+@torch.no_grad()
+def reset_batchnorm_(bn: nn.BatchNorm2d, generator=None) -> None:
+    """Running mean 0, running var 1, bias 0; weight ~ N(1, 0.02) when a
+    generator is given (the U-Net), else 1 (the ResNet)."""
+    bn.running_mean.zero_()
+    bn.running_var.fill_(1.0)
+    bn.num_batches_tracked.zero_()
+    bn.bias.zero_()
+    if generator is None:
+        bn.weight.fill_(1.0)
+    else:
+        bn_scale_init_(bn.weight, generator)
+
+
+# ------------------------------------------------------------------- layers
+
+
+class ConvDown(nn.Module):
+    """4x4 stride-2 pad-1 conv, bias-free (reference audio_net.py:72-74)."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.conv = nn.Conv2d(in_features, features, 4, stride=2, padding=1,
+                              bias=False)
+
+    def reset_parameters_(self, generator: torch.Generator) -> None:
+        normal_init_(self.conv.weight, 0.001, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+class ConvUp(nn.Module):
+    """3x3 pad-1 conv (reference audio_net.py:75-76,85-87)."""
+
+    def __init__(self, in_features: int, features: int,
+                 use_bias: bool = False):
+        super().__init__()
+        self.conv = nn.Conv2d(in_features, features, 3, padding=1,
+                              bias=use_bias)
+
+    def reset_parameters_(self, generator: torch.Generator) -> None:
+        normal_init_(self.conv.weight, 0.001, generator)
+        if self.conv.bias is not None:
+            torch_conv_bias_init_(self.conv.bias,
+                                  self.conv.weight[0].numel(), generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+class TorchBatchNorm(nn.Module):
+    """BatchNorm2d with torch defaults (eps 1e-5, momentum 0.1)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.bn = nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+
+    def reset_parameters_(self, generator: torch.Generator) -> None:
+        reset_batchnorm_(self.bn, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.bn(x)
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    return torch.where(x >= 0, x, slope * x)
+
+
+def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
+    """NCHW bilinear 2x upsample, as torch ``Upsample(scale_factor=2,
+    mode='bilinear', align_corners=True)`` (reference audio_net.py:68-69).
+    The same 2-tap sums as the JAX package's interpolation matrices."""
+    return F.interpolate(x, scale_factor=2, mode="bilinear",
+                         align_corners=True)
+
+
+def cosine_similarity(a: torch.Tensor, b: torch.Tensor, dim: int,
+                      eps: float = 1e-8) -> torch.Tensor:
+    """Cosine similarity with each norm clamped to ``eps`` separately before
+    the division (written out: ``F.cosine_similarity`` clamps differently
+    across torch versions)."""
+    na = torch.clamp(torch.linalg.vector_norm(a, dim=dim), min=eps)
+    nb = torch.clamp(torch.linalg.vector_norm(b, dim=dim), min=eps)
+    return torch.sum(a * b, dim=dim) / (na * nb)
