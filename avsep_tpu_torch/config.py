@@ -120,6 +120,9 @@ class Config:
     # 1.0 is the reference's behaviour
     att_temp: float = 1.0
     demo_mode: str = "vis"
+    # rematerialize the nets' forwards in the backward pass; not ported yet,
+    # True raises in the train forwards (engine.REMAT_ITEM)
+    remat: bool = False
 
     # -------------------------------------------------------------- helpers
     @property

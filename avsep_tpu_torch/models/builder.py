@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from avsep_tpu_torch.models.resnet import FrameEncoder
+from avsep_tpu_torch.models.resnet import FrameEncoder, TinyConvEncoder
 from avsep_tpu_torch.models.unet import AudioUnet
 
 
@@ -56,7 +56,7 @@ class ModelBuilder:
 
     @staticmethod
     def build_frame(arch: str = "resnet18dilated", fc_dim: int = 64,
-                    pool_type: str = "avgpool") -> FrameEncoder:
+                    pool_type: str = "avgpool"):
         if arch == "resnet18fc":
             return FrameEncoder(fc_dim=fc_dim, pool_type=pool_type,
                                 dilate_scale=0)
@@ -64,7 +64,5 @@ class ModelBuilder:
             return FrameEncoder(fc_dim=fc_dim, pool_type=pool_type,
                                 dilate_scale=16)
         if arch == "tinyconv":
-            raise NotImplementedError(
-                "arch_frame tinyconv is not ported yet (ROADMAP.md Queue 1, "
-                "'models/resnet.py: TinyConvEncoder')")
+            return TinyConvEncoder(fc_dim=fc_dim, pool_type=pool_type)
         raise ValueError("Architecture undefined!")

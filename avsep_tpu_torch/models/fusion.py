@@ -10,6 +10,13 @@ Port of ``avsep_tpu/models/fusion.py`` (reference ``models/fusion_net.py``):
   the bottleneck.
 * **CoLoc_Sel** (``fusion_net.py:112-226``): the same, with the visual
   feature at the argmax attention pixel as the guidance.
+* **MixVis** (``fusion_net.py:229-311``): one mixture visual map; per-chunk
+  similarity, argmax-pixel guidance, a match loss with a map-area term and
+  a cross-source cosine penalty.
+
+CoLoc's ``option`` ``"duet_h"`` / ``"duet_w"`` (``"duet"`` is ``"duet_h"``)
+concatenates the two visual maps along height or width and attends both
+chunks over the concatenation (``fusion_net.py:83-90``).
 
 The functions are parameter-free and keep the JAX package's channels-last
 layout: bottleneck ``x [B, h, w, D]``, stacked visual maps
@@ -26,11 +33,6 @@ from typing import NamedTuple, Optional
 import torch
 
 from avsep_tpu_torch.models.layers import cosine_similarity
-
-# ROADMAP.md, "Queue 1": what this port leaves for later slices
-_MIXVIS_ITEM = ("ROADMAP.md Queue 1, 'models/fusion.py: mixvis and the duet "
-                "option concat'")
-
 
 class FusionOut(NamedTuple):
     features: Optional[torch.Tensor]     # [B, h, w, 2D] fused bottleneck
@@ -155,6 +157,14 @@ def _ao_forward(x: torch.Tensor, C: int = 2, *,
     return FusionOut(torch.cat([guidance, x], dim=-1), None, None)
 
 
+def _duet_vcat(v: torch.Tensor, axis_h: bool) -> torch.Tensor:
+    """Duet option: the two frame maps concatenated along one spatial dim,
+    duplicated (reference fusion_net.py:83-90; the reference's host coin
+    is the caller's choice of ``axis_h``)."""
+    vc = torch.cat([v[0], v[1]], dim=1 if axis_h else 2)
+    return torch.stack([vc, vc], dim=0)       # [C=2, B, H', W', Dc]
+
+
 def coloc(x: torch.Tensor, v: Optional[torch.Tensor], *,
           att_type: str = "cos", option: Optional[str] = None,
           select: bool = False, n_sources: int = 2, att_temp: float = 1.0,
@@ -165,19 +175,19 @@ def coloc(x: torch.Tensor, v: Optional[torch.Tensor], *,
     Args:
       x: bottleneck audio features [B, h, w, D].
       v: stacked visual maps [C, B, H, W, D/C], or None (audio-only batch).
-      option: must be None; the duet concat option comes with a later slice.
+      option: None | 'duet' (alias 'duet_h') | 'duet_w': concatenate the
+        two visual maps along height / width first.
       select: False -> CoLoc (attention-pooled guidance); True -> CoLoc_Sel
         (argmax-pixel guidance, reference fusion_net.py:163-169).
       n_sources: chunk count of the audio-only branch.
       uniforms, generator: the audio-only slot swap's draw (one of them is
         needed when ``v`` is None).
     """
-    if option is not None:
-        raise NotImplementedError(
-            f"fusion option {option!r} is not ported yet ({_MIXVIS_ITEM})")
     if v is None:
         return _ao_forward(x, n_sources, uniforms=uniforms,
                            generator=generator)
+    if option in ("duet", "duet_h", "duet_w"):
+        v = _duet_vcat(v, axis_h=option != "duet_w")
 
     B, h, w, D = x.shape
     C = v.shape[0]
@@ -201,6 +211,44 @@ def coloc(x: torch.Tensor, v: Optional[torch.Tensor], *,
                      match_ps)
 
 
+def mixvis(x: torch.Tensor, v: Optional[torch.Tensor], *,
+           att_type: str = "cos", option: Optional[str] = None,
+           n_sources: int = 2, att_temp: float = 1.0,
+           uniforms: Optional[torch.Tensor] = None,
+           generator: Optional[torch.Generator] = None) -> FusionOut:
+    """MixVis fusion against one mixture visual map ``v [1, B, H, W, Dc]``
+    (reference fusion_net.py:229-311).  Two sources only; ``option`` and
+    ``n_sources`` (beyond the audio-only branch) are accepted for the
+    common fusion signature, as in the JAX package."""
+    if v is None:
+        return _ao_forward(x, n_sources, uniforms=uniforms,
+                           generator=generator)
+    vm = v[0]                                          # [B, H, W, Dc]
+    B, h, w, D = x.shape
+    C = 2
+    Dc = D // C
+    blocks = _pool_chunks(x, C)                        # [B, C, Dc]
+    maps = _attend(blocks, vm[:, None], att_type, att_temp)  # [B, C, H, W]
+
+    H, W = vm.shape[1], vm.shape[2]
+    flat = maps.reshape(B, C, H * W)
+    max_ind = torch.argmax(flat, dim=-1)               # [B, C]
+    v_flat = vm.reshape(B, 1, H * W, Dc).expand(B, C, H * W, Dc)
+    selected = torch.gather(
+        v_flat, 2, max_ind[:, :, None, None].expand(B, C, 1, Dc))[:, :, 0]
+
+    # -sum_c max(map_c) + the map-area term + the cross-source cosine
+    # penalty (reference fusion_net.py:258-275; the area is per source)
+    match_ps = (torch.sum(-torch.amax(maps, dim=(2, 3)), dim=-1)
+                + torch.sum(flat, dim=(1, 2)) / (H * W)
+                + cosine_similarity(selected[:, 0], selected[:, 1], dim=1))
+    match_loss = torch.mean(match_ps)
+
+    guidance = _broadcast_guidance(selected, h, w)
+    return FusionOut(torch.cat([guidance, x], dim=-1), match_loss, maps,
+                     match_ps)
+
+
 def get_fusion(fusion_type: str):
     """Dispatch like reference ``get_fusion_net`` (fusion_net.py:7-18)."""
     if fusion_type in ("hidsep", "con_motion", "share", "CoLoc_ClipAtt"):
@@ -208,6 +256,5 @@ def get_fusion(fusion_type: str):
     if fusion_type == "CoLoc_Sel":
         return lambda x, v, **kw: coloc(x, v, select=True, **kw)
     if fusion_type == "MixVis":
-        raise NotImplementedError(
-            f"fusion_type MixVis is not ported yet ({_MIXVIS_ITEM})")
+        return mixvis
     raise ValueError(f"unknown fusion_type {fusion_type}")

@@ -11,6 +11,9 @@ parameter path maps one to one onto a ``state_dict`` key
 
 The initializers take an explicit CPU ``torch.Generator`` and draw on the
 CPU, so the same seed gives the same weights on every device.
+
+:class:`BatchNorm` is the one BatchNorm of the port's nets (U-Net, ResNet,
+tiny encoder): its train mode updates the running statistics as Flax does.
 """
 
 from __future__ import annotations
@@ -112,12 +115,46 @@ class ConvUp(nn.Module):
         return self.conv(x)
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """NCHW BatchNorm with Flax ``nn.BatchNorm``'s training semantics.
+
+    Eval mode normalizes with the running statistics, as ``nn.BatchNorm2d``.
+    Train mode normalizes with the batch statistics and keeps the gradient
+    through them, and updates the running buffers without a gradient as
+    Flax does: ``ra = m * ra + (1 - m) * batch`` with the *biased* batch
+    variance, where ``nn.BatchNorm2d`` uses the unbiased one.  ``momentum``
+    is Flax's m (0.9 is torch's 0.1).  The ``state_dict`` keys are
+    ``nn.BatchNorm2d``'s; ``num_batches_tracked`` counts updates and is
+    read by nothing.
+    """
+
+    def __init__(self, features: int, momentum: float = 0.9,
+                 eps: float = 1e-5):
+        super().__init__(features, eps=eps)
+        self.flax_momentum = momentum
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            m = self.flax_momentum
+            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
 class TorchBatchNorm(nn.Module):
-    """BatchNorm2d with torch defaults (eps 1e-5, momentum 0.1)."""
+    """BatchNorm with torch's defaults (eps 1e-5, momentum 0.1, which is
+    Flax's 0.9) under the JAX package's module name ``bn``."""
 
     def __init__(self, features: int):
         super().__init__()
-        self.bn = nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+        self.bn = BatchNorm(features, momentum=0.9, eps=1e-5)
 
     def reset_parameters_(self, generator: torch.Generator) -> None:
         reset_batchnorm_(self.bn, generator)

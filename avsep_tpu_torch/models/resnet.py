@@ -10,7 +10,9 @@ projecting 512 -> ``fc_dim`` channels, with
   stride turned into dilation, stride 16, 14x14 maps at 224x224;
 * multi-frame input (``forward_multiframe``, vision_net.py:126-147): B*T
   frames through the 2-D CNN, then the temporal mean (``pool=False``, the
-  spatial map CoLoc attends over) or global max/avg pooling to a vector.
+  spatial map CoLoc attends over) or global max/avg pooling to a vector;
+* ``TinyConvEncoder``: the JAX package's three-block bring-up encoder
+  (``--arch_frame tinyconv``) under the same contract.
 
 The convolutions run NCHW; the public interface keeps the JAX package's
 NHWC (frames ``[B, H, W, 3]`` or ``[B, T, H, W, 3]`` in, maps
@@ -22,12 +24,14 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from avsep_tpu_torch.models.layers import he_normal_init_, reset_batchnorm_
+from avsep_tpu_torch.models.layers import (
+    BatchNorm, he_normal_init_, reset_batchnorm_)
 
 
-def _bn(features: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+def _bn(features: int) -> BatchNorm:
+    return BatchNorm(features, momentum=0.9, eps=1e-5)
 
 
 class BasicBlock(nn.Module):
@@ -100,26 +104,27 @@ class ResNet18Features(nn.Module):
         return y
 
 
-class FrameEncoder(nn.Module):
-    """ResnetFC / ResnetDilated: trunk + 3x3 fc conv + pooling modes.
+class _FrameNet(nn.Module):
+    """A trunk (``features``) + a 3x3 ``fc`` conv + the pooling modes.
 
     ``forward(frames, pool)`` takes [B, H, W, 3] single frames or
     [B, T, H, W, 3] multi-frame stacks.  pool=False -> spatial map
     [B, h, w, fc_dim] (temporal mean for stacks); pool=True -> global
-    max/avg-pooled vector [B, fc_dim].
+    max/avg-pooled vector [B, fc_dim].  The names ``features`` and ``fc``
+    are the optimizer's groups (``train.py``).
     """
 
-    def __init__(self, fc_dim: int = 64, pool_type: str = "maxpool",
-                 dilate_scale: int = 16):
+    def __init__(self, features: nn.Module, trunk_dim: int, fc_dim: int,
+                 pool_type: str):
         super().__init__()
         self.pool_type = pool_type
-        self.features = ResNet18Features(dilate_scale)
-        self.fc = nn.Conv2d(512, fc_dim, 3, padding=1, bias=True)
+        self.features = features
+        self.fc = nn.Conv2d(trunk_dim, fc_dim, 3, padding=1, bias=True)
 
     @torch.no_grad()
     def reset_parameters_(self, generator: torch.Generator) -> None:
-        """He-normal (fan_out) convs, unit BatchNorm, zero fc bias: the JAX
-        package's init, drawn from ``generator`` in module order."""
+        """He-normal (fan_out) convs, zero conv biases, unit BatchNorm: the
+        JAX package's init, drawn from ``generator`` in module order."""
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 he_normal_init_(m.weight, generator)
@@ -151,3 +156,53 @@ class FrameEncoder(nn.Module):
         if self.pool_type == "maxpool":
             return torch.amax(y, dim=dims)
         return torch.mean(y, dim=dims)
+
+
+class FrameEncoder(_FrameNet):
+    """ResnetFC / ResnetDilated: the ResNet18 trunk + the 3x3 fc conv."""
+
+    def __init__(self, fc_dim: int = 64, pool_type: str = "maxpool",
+                 dilate_scale: int = 16):
+        super().__init__(ResNet18Features(dilate_scale), 512, fc_dim,
+                         pool_type)
+
+
+def _same_pad(size: int, kernel: int, stride: int):
+    """Flax/XLA ``SAME`` padding of one spatial dim: ``(lo, hi)`` with the
+    odd pixel at the end (stride 2, kernel 3 on an even size pads (0, 1))."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class _TinyTrunk(nn.Module):
+    """Three stride-2 3x3 conv (with bias) - BN - ReLU blocks, 16/32/64
+    channels, ``SAME`` padding.  Submodules carry Flax's automatic names
+    (``Conv_0``, ``BatchNorm_0``, ...), so the JAX parameter paths are the
+    ``state_dict`` keys.  The BNs keep Flax's default momentum, 0.99."""
+
+    def __init__(self):
+        super().__init__()
+        cin = 3
+        for i, ch in enumerate((16, 32, 64)):
+            self.add_module(f"Conv_{i}", nn.Conv2d(cin, ch, 3, stride=2,
+                                                   padding=0, bias=True))
+            self.add_module(f"BatchNorm_{i}", BatchNorm(ch, momentum=0.99))
+            cin = ch
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(3):
+            (t, b), (l, r) = (_same_pad(x.shape[2], 3, 2),
+                              _same_pad(x.shape[3], 3, 2))
+            x = getattr(self, f"Conv_{i}")(F.pad(x, (l, r, t, b)))
+            x = torch.relu(getattr(self, f"BatchNorm_{i}")(x))
+        return x
+
+
+class TinyConvEncoder(_FrameNet):
+    """The JAX package's bring-up frame encoder (``--arch_frame tinyconv``,
+    ``avsep_tpu/models/resnet.py:159-216``, no reference equivalent): the
+    FrameEncoder contract with an 8x-downsampling three-block trunk."""
+
+    def __init__(self, fc_dim: int = 64, pool_type: str = "maxpool"):
+        super().__init__(_TinyTrunk(), 64, fc_dim, pool_type)

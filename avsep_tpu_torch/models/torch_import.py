@@ -1,0 +1,105 @@
+"""Load the reference's PyTorch ``.pth`` checkpoints into the port's nets.
+
+Port of ``avsep_tpu/models/torch_import.py``.  The reference saves per-net
+``state_dict`` files (``{sound,frame}_{latest,best}.pth``, reference
+``main.py:506-533``); their tensors are already in torch's layout, so the
+conversion only renames keys onto the port's module names:
+
+* U-Net (``models/audio_net.py:10-43``): the outermost down conv is
+  ``unet_block.down_forward.0``; deeper levels nest under
+  ``mid_forward.`` with the conv at ``down_forward.1`` and the BN at
+  ``down_forward.2``; every up conv is ``up_forward.2`` and its BN
+  ``up_forward.3``.
+* ResNet: the reference's ``features.N...`` (``vision_net.py:26-30``) or a
+  raw torchvision ``resnet18`` dict (``conv1.weight``...); a 4-D ``fc`` is
+  the reference's 3x3 projection, a 2-D one torchvision's classifier
+  (dropped).
+
+The SoP++ synthesizer's loader waits for the SoP++ slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import torch
+
+_BN_KEYS = ("weight", "bias", "running_mean", "running_var")
+
+
+def _bn(out: Dict, dst: str, sd: Mapping, src: str) -> None:
+    for k in _BN_KEYS:
+        out[f"{dst}.{k}"] = sd[f"{src}.{k}"]
+    # a scalar, as BatchNorm keeps it (the JAX package's export writes it
+    # with shape [1])
+    out[f"{dst}.num_batches_tracked"] = torch.as_tensor(sd.get(
+        f"{src}.num_batches_tracked", 0), dtype=torch.long).reshape(())
+
+
+def unet_state_dict_from_torch(sd: Mapping, num_downs: int = 7
+                               ) -> Dict[str, torch.Tensor]:
+    """A reference ``Unet.state_dict()`` -> the ``state_dict`` of the
+    port's :class:`~avsep_tpu_torch.models.unet.AudioUnet`."""
+    out: Dict[str, torch.Tensor] = {}
+    _bn(out, "bn0.bn", sd, "bn0")
+    for d in range(num_downs):
+        prefix = "unet_block." + "mid_forward." * d
+        out[f"down{d}.conv.weight"] = sd[prefix + (
+            "down_forward.0.weight" if d == 0 else "down_forward.1.weight")]
+        if 0 < d < num_downs - 1:
+            _bn(out, f"down_bn{d}.bn", sd, prefix + "down_forward.2")
+        out[f"up{d}.conv.weight"] = sd[prefix + "up_forward.2.weight"]
+        if prefix + "up_forward.2.bias" in sd:
+            out[f"up{d}.conv.bias"] = sd[prefix + "up_forward.2.bias"]
+        if d > 0:
+            _bn(out, f"up_bn{d}.bn", sd, prefix + "up_forward.3")
+    return out
+
+
+_RESNET_SEQ = {"0": "conv1", "1": "bn1", "4": "layer1", "5": "layer2",
+               "6": "layer3", "7": "layer4"}
+
+
+def _normalize_resnet_keys(sd: Mapping) -> Dict[str, torch.Tensor]:
+    """Reference ``features.N...`` keys -> torchvision's names."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("features."):
+            parts = k.split(".")
+            parts[1] = _RESNET_SEQ.get(parts[1], parts[1])
+            out[".".join(parts[1:])] = v
+        else:
+            out[k] = v
+    return out
+
+
+def resnet_state_dict_from_torch(sd: Mapping, with_fc: bool = True
+                                 ) -> Dict[str, torch.Tensor]:
+    """A reference ``ResnetFC`` / ``ResnetDilated`` ``state_dict`` or a
+    torchvision resnet18 one -> the port's
+    :class:`~avsep_tpu_torch.models.resnet.FrameEncoder` keys.  Without a
+    4-D ``fc`` the result has no ``fc.*`` keys."""
+    sd = _normalize_resnet_keys(sd)
+    out: Dict[str, torch.Tensor] = {
+        "features.conv1.weight": sd["conv1.weight"]}
+    _bn(out, "features.bn1", sd, "bn1")
+    for li in (1, 2, 3, 4):
+        for bi in (0, 1):
+            src, dst = f"layer{li}.{bi}", f"features.layer{li}_{bi}"
+            out[dst + ".conv1.weight"] = sd[src + ".conv1.weight"]
+            out[dst + ".conv2.weight"] = sd[src + ".conv2.weight"]
+            _bn(out, dst + ".bn1", sd, src + ".bn1")
+            _bn(out, dst + ".bn2", sd, src + ".bn2")
+            if src + ".downsample.0.weight" in sd:
+                out[dst + ".downsample_conv.weight"] = sd[
+                    src + ".downsample.0.weight"]
+                _bn(out, dst + ".downsample_bn", sd, src + ".downsample.1")
+    if with_fc and "fc.weight" in sd and sd["fc.weight"].dim() == 4:
+        out["fc.weight"] = sd["fc.weight"]
+        out["fc.bias"] = sd["fc.bias"]
+    return out
+
+
+def load_torch_checkpoint(path: str) -> Mapping[str, torch.Tensor]:
+    """A ``.pth`` ``state_dict``, on the CPU, tensors only."""
+    return torch.load(path, map_location="cpu", weights_only=True)

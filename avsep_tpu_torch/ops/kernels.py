@@ -199,8 +199,18 @@ def frame_window(padded: torch.Tensor, n_frames: int, n_fft: int,
     ``out[b, t, j] = padded[b, t*hop + j] * hann(n_fft)[j]``, samples past
     the end of a row reading as zero.  CPU tensor: plain version.  CUDA
     tensor: the kernel of ``csrc/frame_window.cu``.
+
+    The kernel has no backward, as the TPU kernel has none: its input is
+    data.  A ``padded`` that requires grad while grad mode is on raises
+    (on every device, so that the CPU's differentiable plain version does
+    not hide what the card would do) instead of returning an output cut
+    off from the graph.
     """
     _check_f32(padded, "padded", 2)
+    if padded.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError("frame_window has no backward: its input must "
+                           "not require grad (detach it, or call under "
+                           "torch.no_grad())")
     if n_frames < 1 or n_fft < 1 or hop < 1:
         raise ValueError(f"need n_frames, n_fft, hop >= 1; got {n_frames}, "
                          f"{n_fft}, {hop}")

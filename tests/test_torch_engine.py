@@ -182,10 +182,27 @@ def test_init_params_is_seeded_and_follows_the_reference_init():
 
 def test_build_nets_rejects_what_this_slice_leaves_out():
     _, cfg = _configs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.build_nets(cfg.replace(fusion_type="MixVis"), device="cpu")
+    engine.build_nets(cfg.replace(fusion_type="MixVis"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.build_nets(cfg.replace(load_clips=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        engine.build_nets(cfg.replace(fusion_type="CoLoc_ClipAtt"),
+                          device="cpu")
+
+
+def test_separate_mixvis_one_stream_matches_jax(nets):
+    """MixVis with one (mixture) stream: not the duet quirk, the activated
+    feature goes to the fusion once (avsep_tpu/engine.py:431)."""
+    jnets, params, stats, _ = nets
+    jcfg, cfg = _configs(fusion_type="MixVis")
+    jn = jax_build_nets(jcfg)._replace(frame=jnets.frame)
+    pn = engine.build_nets(cfg, device="cpu")
+    load_from_jax(pn, params, stats)
+    wav, frames = _inputs(9, n_streams=1)
+    ref = jax.device_get(jax_separate(jn, params, stats, jnp.asarray(wav),
+                                      jnp.asarray(frames), jcfg))
+    got = engine.separate(pn, wav, frames, cfg, device="cpu")
+    _check(ref, got, 2, 2)
 
 
 @pytest.mark.slow

@@ -1,6 +1,7 @@
-"""The port's CoLoc fusion (avsep_tpu_torch/models/fusion.py) against the
-JAX package's, on the same numpy inputs, with the JAX package's own uniforms
-injected into the audio-only slot swap.
+"""The port's CoLoc, CoLoc_Sel and MixVis fusions and the duet option
+(avsep_tpu_torch/models/fusion.py) against the JAX package's, on the same
+numpy inputs, with the JAX package's own uniforms injected into the
+audio-only slot swap.
 
 Tolerance: the fusion is float32 reductions (max, sums over Dc, norms) in
 another order, 1e-5 relative; the permutation choice and the argmax pixel
@@ -113,11 +114,51 @@ def test_get_fusion_dispatch():
         ref = jf.coloc(jnp.asarray(x), jnp.asarray(v), att_type="cos",
                        select=select)
         _close(got.features.numpy(), ref.features)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pf.get_fusion("MixVis")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pf.coloc(torch.from_numpy(x), torch.from_numpy(v), option="duet")
+    assert pf.get_fusion("MixVis") is pf.mixvis
     with pytest.raises(ValueError):
         pf.get_fusion("nope")
     with pytest.raises(ValueError):
         pf.coloc(torch.zeros(1, 1, 1, 7), torch.zeros(2, 1, 2, 2, 3))
+
+
+@pytest.mark.parametrize("option", ["duet", "duet_h", "duet_w"])
+@pytest.mark.parametrize("select", [False, True])
+def test_coloc_duet_option_matches_jax(option, select):
+    x, v = _inputs(60, H=4, W=6)
+    ref = jf.coloc(jnp.asarray(x), jnp.asarray(v), att_type="sig",
+                   option=option, select=select)
+    got = pf.coloc(torch.from_numpy(x), torch.from_numpy(v), att_type="sig",
+                   option=option, select=select)
+    want = (2, 3, 8, 6) if option != "duet_w" else (2, 3, 4, 12)
+    assert tuple(got.att_maps.transpose(0, 1).shape) == want
+    _close(got.features.numpy(), ref.features)
+    _close(got.att_maps.numpy(), ref.att_maps)
+    _close(got.match_ps.numpy(), ref.match_ps)
+
+
+@pytest.mark.parametrize("att_type", ["cos", "sig"])
+@pytest.mark.parametrize("att_temp", [1.0, 0.5])
+def test_mixvis_matches_jax(att_type, att_temp):
+    """One mixture map [1, B, H, W, D/2]: attention maps, the argmax-pixel
+    guidance, and the match loss with its area and cosine terms."""
+    rs = np.random.RandomState(70)
+    x = rs.randn(3, 2, 2, 32).astype(np.float32)
+    v = rs.rand(1, 3, 4, 10, 16).astype(np.float32)
+    ref = jf.mixvis(jnp.asarray(x), jnp.asarray(v), att_type=att_type,
+                    att_temp=att_temp)
+    got = pf.get_fusion("MixVis")(torch.from_numpy(x), torch.from_numpy(v),
+                                  att_type=att_type, att_temp=att_temp)
+    _close(got.features.numpy(), ref.features)
+    _close(got.att_maps.numpy(), ref.att_maps)
+    _close(got.match_ps.numpy(), ref.match_ps)
+    _close(got.match_loss.numpy(), ref.match_loss)
+
+
+def test_mixvis_audio_only_matches_jax_with_injected_uniforms():
+    x, _ = _inputs(80, B=8)
+    key = jax.random.PRNGKey(4)
+    ref = jf.mixvis(jnp.asarray(x), None, rng=key)
+    got = pf.mixvis(torch.from_numpy(x), None, uniforms=torch.from_numpy(
+        np.array(jax.random.uniform(key, (8,)))))
+    np.testing.assert_array_equal(got.features.numpy(),
+                                  np.asarray(ref.features))

@@ -36,8 +36,9 @@ def _port_modules():
 
 def test_port_and_chip_smoke_import_without_jax():
     mods = _port_modules() + ["chip_smoke"]
-    assert "avsep_tpu_torch.ops.kernels" in mods
-    assert "avsep_tpu_torch.engine" in mods
+    for name in ("ops.kernels", "engine", "train", "checkpoint",
+                 "models.criterion", "models.torch_import"):
+        assert f"avsep_tpu_torch.{name}" in mods
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _PROBE, *mods], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)

@@ -77,6 +77,60 @@ def test_batchnorm_eval_matches_jax():
     _close(_nhwc(pm(_nchw(x))), ref)
 
 
+@pytest.mark.parametrize("momentum", [0.9, 0.99])
+def test_batchnorm_train_matches_flax(momentum):
+    """Train mode: output, the gradient through the batch statistics, and
+    the running buffers, updated with the biased batch variance.  0.9 is
+    the U-Net's and ResNet's BN (``TorchBatchNorm``), 0.99 Flax's default
+    (``TinyConvEncoder``'s trunk).  The running variance must also differ
+    from torch's unbiased update by more than the tolerance, so that the
+    test tells the two apart."""
+    rs = np.random.RandomState(8)
+    x = (rs.randn(3, 5, 4, 6) * 2.0 + 1.0).astype(np.float32)
+    r = rs.randn(3, 5, 4, 6).astype(np.float32)
+    if momentum == 0.9:
+        jm, pm, pre = jl.TorchBatchNorm(), pl.TorchBatchNorm(6), "bn."
+        kw = dict(train=True)
+    else:
+        jm, pm, pre = nn.BatchNorm(use_running_average=False), \
+            pl.BatchNorm(6, momentum=0.99), ""
+        kw = {}
+    var = _random_variables(jm, rs, jnp.asarray(x), **kw)
+    pm.load_state_dict(state_dict_from_jax(var["params"],
+                                           var["batch_stats"]), strict=True)
+    pm.train()
+
+    def loss(params, xx):
+        y, upd = jm.apply({"params": params,
+                           "batch_stats": var["batch_stats"]}, xx,
+                          mutable=["batch_stats"], **kw)
+        return jnp.sum(y * r), (y, upd["batch_stats"])
+
+    (_, (ref, stats)), (gp, gx) = jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True)(var["params"], jnp.asarray(x))
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_(True)
+    y = pm(xt)
+    params = dict(pm.named_parameters())
+    g = torch.autograd.grad(torch.sum(y.permute(0, 2, 3, 1)
+                                      * torch.from_numpy(r)),
+                            [xt, params[pre + "weight"], params[pre + "bias"]])
+    _close(_nhwc(y), ref)
+    _close(_nhwc(g[0]), gx, rel=1e-4)
+    gsd = state_dict_from_jax(gp, {})
+    _close(g[1].numpy(), gsd[pre + "weight"], rel=1e-4)
+    _close(g[2].numpy(), gsd[pre + "bias"], rel=1e-4)
+    want = state_dict_from_jax(var["params"], stats)
+    got = pm.state_dict()
+    for k in ("running_mean", "running_var"):
+        _close(got[pre + k].numpy(), want[pre + k].numpy())
+    ra = torch.from_numpy(np.asarray(var["batch_stats"]["bn"]["var"]
+                                     if pre else var["batch_stats"]["var"]))
+    unbiased = (momentum * ra + (1 - momentum) * torch.var(
+        xt.detach(), dim=(0, 2, 3), unbiased=True))
+    assert (unbiased - want[pre + "running_var"]).abs().max() > \
+        1e-5 * want[pre + "running_var"].abs().max()
+
+
 def test_leaky_relu_matches_jax():
     x = np.random.RandomState(5).randn(100).astype(np.float32)
     np.testing.assert_array_equal(

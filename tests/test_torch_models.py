@@ -11,7 +11,9 @@ Tolerances: float32 networks with the same arithmetic in another summation
 order.  The ResNet is held at 1e-4 relative to its largest output (17
 convolutions, each adding ~1e-6); the U-Net's masks at 2e-4 absolute
 (torch's upsample rounds its tap weights in float32, see
-test_torch_layers.py, across five decoder levels).
+test_torch_layers.py, across five decoder levels).  The tiny conv encoder
+(four convolutions, three BatchNorms) is held at 1e-5 relative, its
+running statistics after a train-mode call too.
 """
 
 import numpy as np
@@ -22,10 +24,11 @@ import jax
 import jax.numpy as jnp
 
 from avsep_tpu.models.resnet import FrameEncoder as JFrameEncoder
+from avsep_tpu.models.resnet import TinyConvEncoder as JTinyConvEncoder
 from avsep_tpu.models.unet import AudioUnet as JAudioUnet
 from avsep_tpu_torch.models.builder import ModelBuilder, activate
 from avsep_tpu_torch.models.from_jax import state_dict_from_jax
-from avsep_tpu_torch.models.resnet import FrameEncoder
+from avsep_tpu_torch.models.resnet import FrameEncoder, TinyConvEncoder
 from avsep_tpu_torch.models.unet import AudioUnet
 
 
@@ -184,12 +187,59 @@ def test_frame_encoder_plain_resnet_matches_jax(pool_type):
 
 
 def test_builder_rejects_what_this_slice_leaves_out():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ModelBuilder.build_frame("tinyconv", 16)
+    assert isinstance(ModelBuilder.build_frame("tinyconv", 16),
+                      TinyConvEncoder)
     with pytest.raises(ValueError):
         ModelBuilder.build_frame("vgg", 16)
     with pytest.raises(ValueError):
         ModelBuilder.build_sound("unet9")
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    rs = np.random.RandomState(15)
+    jm = JTinyConvEncoder(fc_dim=16, pool_type="maxpool")
+    var = random_variables(jm, rs, jnp.zeros((1, 64, 64, 3)), pool=False,
+                           train=False)
+    pm = _load(ModelBuilder.build_frame("tinyconv", 16, "maxpool"), var)
+    return jm, var, pm
+
+
+def test_tinyconv_state_dict_keys_are_the_flax_scopes(tiny):
+    _, var, pm = tiny
+    keys = set(pm.state_dict())
+    assert "features.Conv_0.bias" in keys and "fc.weight" in keys
+    assert "features.BatchNorm_2.running_var" in keys
+    assert pm.features.BatchNorm_0.flax_momentum == 0.99
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("frames_shape", [(2, 64, 64, 3), (3, 33, 47, 3),
+                                          (2, 2, 20, 17, 3)])
+def test_tinyconv_matches_jax(tiny, train, frames_shape):
+    """SAME padding on even and odd sizes (stride 2 pads (0, 1) on an even
+    size, (1, 1) on an odd one), multi-frame stacks, and train mode: the
+    map, then the BN statistics the call leaves behind."""
+    jm, var, pm = tiny
+    f = np.random.RandomState(16).randn(*frames_shape).astype(np.float32)
+    pool = len(frames_shape) == 5
+    if train:
+        ref, upd = jm.apply(var, jnp.asarray(f), pool=pool, train=True,
+                            mutable=["batch_stats"])
+    else:
+        ref = jm.apply(var, jnp.asarray(f), pool=pool, train=False)
+    before = {k: v.clone() for k, v in pm.state_dict().items()}
+    pm.train(train)
+    with torch.no_grad():
+        got = pm(torch.from_numpy(f), pool=pool)
+    assert _rel(got.numpy(), ref) < 1e-5
+    if train:
+        want = state_dict_from_jax(var["params"], upd["batch_stats"])
+        for k, v in pm.state_dict().items():
+            if k.endswith(("running_mean", "running_var")):
+                assert _rel(v.numpy(), want[k].numpy()) < 1e-5, k
+        pm.load_state_dict(before)
+    pm.eval()
 
 
 @pytest.mark.parametrize("act", ["sigmoid", "softmax", "relu", "tanh", "no"])
