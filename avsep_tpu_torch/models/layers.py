@@ -126,6 +126,11 @@ class BatchNorm(nn.BatchNorm2d):
     is Flax's m (0.9 is torch's 0.1).  The ``state_dict`` keys are
     ``nn.BatchNorm2d``'s; ``num_batches_tracked`` counts updates and is
     read by nothing.
+
+    The batch statistics come out of the normalizing call itself: it gets
+    zeroed scratch buffers and momentum 1, so it writes the batch mean and
+    the unbiased batch variance there, and the biased one is that times
+    ``(n - 1) / n``.
     """
 
     def __init__(self, features: int, momentum: float = 0.9,
@@ -137,13 +142,15 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                         self.eps)
+        batch = x.new_zeros(2, x.shape[1])
+        y = F.batch_norm(x, batch[0], batch[1], self.weight, self.bias, True,
+                         1.0, self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            n = x.numel() // x.shape[1]
             m = self.flax_momentum
-            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
-            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+            self.running_mean.mul_(m).add_(batch[0], alpha=1.0 - m)
+            self.running_var.mul_(m).add_(batch[1],
+                                          alpha=(1.0 - m) * (n - 1) / n)
             self.num_batches_tracked.add_(1)
         return y
 

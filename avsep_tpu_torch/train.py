@@ -177,18 +177,29 @@ def _groups_of(cfg: Config, use_vis: bool) -> List[str]:
 @torch.no_grad()
 def _sgd_update(cfg: Config, state: TrainState, params: Dict, grads: Dict,
                 use_vis: bool) -> None:
+    """One SGD update of the groups that advance, each operation over a
+    whole group at once (``torch._foreach_*``), rounded as optax rounds it:
+    ``u = g + wd * p``, ``buf = beta1 * buf + u``, ``p += (-lr) * buf``."""
     wd, beta1 = cfg.weight_decay, cfg.beta1
     for g in _groups_of(cfg, use_vis):
         gs = state.opt_state[g]
         neg_lr = -lr_at(_base_lr(cfg, g), cfg.lr_steps, gs.count)
-        for name, buf in gs.momentum.items():
-            p = params[name]
-            grad = grads.get(name)
-            u = p * wd if grad is None else grad + p * wd
-            buf.mul_(beta1).add_(u)
-            # an AO step leaves the whole frame net where it is
-            if use_vis or not name.startswith("frame."):
-                p.add_(buf * neg_lr)
+        names = list(gs.momentum)
+        bufs = [gs.momentum[n] for n in names]
+        us = torch._foreach_mul([params[n] for n in names], wd)
+        with_grad = [i for i, n in enumerate(names)
+                     if grads.get(n) is not None]
+        if with_grad:
+            torch._foreach_add_([us[i] for i in with_grad],
+                                [grads[names[i]] for i in with_grad])
+        torch._foreach_mul_(bufs, beta1)
+        torch._foreach_add_(bufs, us)
+        # an AO step leaves the whole frame net where it is
+        moving = [i for i, n in enumerate(names)
+                  if use_vis or not n.startswith("frame.")]
+        torch._foreach_add_([params[names[i]] for i in moving],
+                            torch._foreach_mul([bufs[i] for i in moving],
+                                               neg_lr))
         gs.count += 1
 
 
