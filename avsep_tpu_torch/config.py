@@ -1,20 +1,26 @@
-"""Typed configuration for avsep_tpu_torch.
+"""Typed configuration for avsep_tpu_torch, and its command line.
 
 The same flag names and defaults as the reference's ``arguments.py``
 (reference ``arguments.py:6-169``), as a frozen dataclass.  This is the
 port's own copy of ``avsep_tpu/config.py``: the port imports nothing of the
-JAX package.  It drops the fields that only the TPU runtime reads (the
-Pallas switch, the device mesh, multi-host bring-up, the host wire formats
-and the XLA profiler): on a CUDA tensor the port always runs its kernels,
-on a CPU tensor their plain versions.  The argparse surface comes with the
-command-line slice of the port.
+JAX package.  It leaves out the fields of features the port lacks (the
+compute dtype, the Pallas switch, the device mesh, multi-host bring-up): on
+a CUDA tensor the port always runs its kernels, on a CPU tensor their plain
+versions, in float32 on one device.
+
+:func:`parse_args` accepts every flag string of the JAX package, so the
+repository's ``scripts/*.sh`` option strings parse unchanged.  A flag of a
+feature the port lacks (``UNPORTED_FLAGS``), or ``--frame_decode native`` /
+``fast``, raises at a value other than its default, naming the
+``ROADMAP.md`` item it waits for: nothing is silently ignored.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 
 @dataclass(frozen=True)
@@ -123,6 +129,18 @@ class Config:
     # rematerialize the nets' forwards in the backward pass; not ported yet,
     # True raises in the train forwards (engine.REMAT_ITEM)
     remat: bool = False
+    # host->device audio encoding: "f32" (bit-exact) or "int16" (+ one gain
+    # per source, about half the audio bytes; data/wire.py)
+    audio_wire: str = "f32"
+    # host frame decode: "auto" and "pil" both decode with PIL here (the
+    # JAX package's C++ decode gives the same pixels); "native" and "fast"
+    # raise (FRAME_DECODE_ITEM)
+    frame_decode: str = "auto"
+    # torch.profiler trace of iterations [profile_start, profile_start +
+    # profile_steps) of the train loop, written to profile_dir (off if "")
+    profile_dir: str = ""
+    profile_start: int = 10
+    profile_steps: int = 5
 
     # -------------------------------------------------------------- helpers
     @property
@@ -145,3 +163,92 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+# ROADMAP.md, where each feature the port lacks waits
+DTYPE_ITEM = "ROADMAP.md Queue 2, item 2 (a bf16 or TF32 mode)"
+MESH_ITEM = "ROADMAP.md Queue 1, 'parallel/' (torch.distributed DDP)"
+FRAME_DECODE_ITEM = "ROADMAP.md Queue 1, 'data/native.py' (C++ decode)"
+KERNEL_SWITCH_ITEM = ("ROADMAP.md, 'Flags that raise' (the port runs its "
+                      "kernels on every CUDA tensor; nothing switches them)")
+
+# flags of the JAX package that the port's Config has no field for: their
+# default (the only value the port accepts) and the ROADMAP.md item
+UNPORTED_FLAGS = {
+    "dtype": ("float32", DTYPE_ITEM),
+    "use_pallas": (False, KERNEL_SWITCH_ITEM),
+    "data_axis": ("data", MESH_ITEM),
+    "mesh_shape": ((), MESH_ITEM),
+    "dist_coordinator": ("", MESH_ITEM),
+    "dist_nprocs": (1, MESH_ITEM),
+    "dist_procid": (0, MESH_ITEM),
+    "dist_data": ("replicate", MESH_ITEM),
+}
+FRAME_DECODES = ("auto", "pil")
+
+
+def check_frame_decode(frame_decode: str) -> None:
+    """The port decodes frames with PIL: ``auto`` and ``pil`` do that;
+    ``native`` and ``fast`` (the JAX package's C++ decode) raise."""
+    if frame_decode not in FRAME_DECODES:
+        raise NotImplementedError(
+            f"--frame_decode {frame_decode} is not ported yet "
+            f"({FRAME_DECODE_ITEM}); use auto or pil")
+
+
+_STORE_TRUE = ("load_clips", "one_frame", "fix_vis", "start_av_first",
+               "restart_from_latest")
+# reference arguments.py:52 and :148: store_false with default True
+_STORE_FALSE = ("not_pool_vis", "use_spec")
+
+
+def _add_flag(p: argparse.ArgumentParser, name: str, default) -> None:
+    flag = "--" + name
+    if name in _STORE_FALSE:
+        p.add_argument(flag, action="store_false", default=True)
+    elif name in _STORE_TRUE:
+        p.add_argument(flag, action="store_true", default=False)
+    elif isinstance(default, tuple):
+        elem = int if all(isinstance(x, int) for x in default) else str
+        p.add_argument(flag, nargs="+", type=elem, default=list(default))
+    elif isinstance(default, bool):
+        p.add_argument(flag, type=lambda s: s.lower() in ("1", "true", "yes"),
+                       default=default)
+    else:
+        p.add_argument(flag, type=type(default), default=default)
+
+
+def _build_parser() -> argparse.ArgumentParser:
+    """An argparse parser accepting the reference's exact flag strings, and
+    every flag of the JAX package."""
+    p = argparse.ArgumentParser(description="avsep_tpu_torch")
+    d = Config()
+    for f in dataclasses.fields(Config):
+        _add_flag(p, f.name, getattr(d, f.name))
+    for name, (default, _) in UNPORTED_FLAGS.items():
+        _add_flag(p, name, default)
+    return p
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> Config:
+    """Parse reference-compatible CLI flags into a Config.  Raises
+    ``NotImplementedError`` for a flag of a feature the port lacks, set to
+    anything but its default."""
+    kw = vars(_build_parser().parse_args(argv))
+    for name, (default, item) in UNPORTED_FLAGS.items():
+        value = kw.pop(name)
+        if isinstance(default, tuple):
+            value = tuple(value)
+        if value != default:
+            raise NotImplementedError(
+                f"--{name} {value!r} is not ported (only {default!r}); see "
+                f"{item}")
+    check_frame_decode(kw["frame_decode"])
+    for f in dataclasses.fields(Config):
+        if isinstance(kw[f.name], list):
+            kw[f.name] = tuple(kw[f.name])
+    cfg = Config(**kw)
+    print("Input arguments:")  # reference arguments.py:138-141
+    for k, v in sorted(dataclasses.asdict(cfg).items()):
+        print("{:16} {}".format(k, v))
+    return cfg

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from avsep_tpu_torch.config import Config
+from avsep_tpu_torch.data.wire import encode_audio_wire
 from avsep_tpu_torch.models import criterion as crit
 from avsep_tpu_torch.models.builder import ModelBuilder, activate
 from avsep_tpu_torch.ops.prepare import PreparedBatch, prepare
@@ -70,6 +71,18 @@ def resolve_device(device=None) -> torch.device:
                 "the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def nets_device(nets: Nets, device=None) -> torch.device:
+    """:func:`resolve_device` of ``device``, checked against ``nets``: raises
+    if a parameter lies on another device."""
+    dev = resolve_device(device)
+    for net_name, net in nets._asdict().items():
+        for name, p in net.named_parameters():
+            if p.device.type != dev.type:
+                raise ValueError(f"{net_name}.{name} lies on {p.device}, "
+                                 f"not {dev}")
+    return dev
 
 
 def build_nets(cfg: Config, device=None) -> Nets:
@@ -149,6 +162,30 @@ def _to_device(x, dev: torch.device) -> torch.Tensor:
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(x)
     return x.to(dev)
+
+
+def to_device(batch: Dict, device: torch.device, drop=(), cfg=None
+              ) -> Dict[str, torch.Tensor]:
+    """The arrays of a host batch that a step reads, on ``device``:
+    ``audio_mix`` is rebuilt there from the sources (:func:`audio_mix_of`),
+    ``class`` and the string fields are never read, ``drop`` names the
+    visual streams the branch does not read; ``cfg.audio_wire`` int16
+    re-encodes the sources (``data/wire.py``).  A copy to a GPU goes from
+    pinned memory without blocking the host, ordered on the current
+    stream."""
+    skip = ("class", "audio_mix") + tuple(drop)
+    host = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)
+            and v.dtype != object and k not in skip}
+    if cfg is not None:
+        host = encode_audio_wire(host, cfg)
+    pinned = device.type == "cuda"
+    out = {}
+    for k, v in host.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if pinned:
+            t = t.pin_memory()
+        out[k] = t.to(device, non_blocking=pinned)
+    return out
 
 
 def _set_mode(nets: Nets, train: bool) -> None:

@@ -211,10 +211,7 @@ def make_train_step(cfg: Config, nets: Nets, use_vis: bool,
     ``err`` and ``match_loss``.  The AO step's slot swap takes
     ``swap_uniforms [B]`` or ``generator``.  The nets must lie on
     ``device`` (``cuda`` unless ``device="cpu"``)."""
-    dev = engine.resolve_device(device)
-    for name, p in named_parameters(nets):
-        if p.device.type != dev.type:
-            raise ValueError(f"{name} lies on {p.device}, not {dev}")
+    dev = engine.nets_device(nets, device)
 
     def step(state: TrainState, batch, *, swap_uniforms=None,
              generator=None) -> Tuple[TrainState, Dict]:

@@ -58,14 +58,45 @@ script exits non-zero before printing any result.
    binary_mask 0) from the same weights and batches on the card and on
    the CPU: losses, parameters, momentum buffers and BatchNorm running
    statistics within ``TRAIN_TOL``, group counts equal.
-Then the kernel table as one JSON line (launches summed over the separate
-and train runs, and by path), the nvidia-smi line, and last
+8. eval: the recipe of scripts/eval_MUSIC.sh at full width (unet7,
+   resnet18dilated-256, hidsep/sig, bce, binary weighted masks,
+   log-frequency warp, one frame, dft "fft", float32 with TF32 off), B = 16,
+   65535 samples, frames [16, 2, 1, 224, 224, 3] uint8, random weights from
+   ``engine.init_params``: ``evaluate.evaluate`` for the AV branch, then
+   the AO branch, over an in-memory loader of EVAL_BATCHES seeded batches,
+   once to warm up and once timed.  ms per eval step (CUDA events around
+   each step), the share of it in ``eval_metrics`` (CUDA events), clips/s
+   (host clock around the sweep), peak memory.  frame_window must launch 3
+   times and overlap_add_normalize once per eval step (counters set to 0
+   just before the timed sweeps, read per step and just after); each
+   results.csv must hold one finite row per clip, and the history's meters
+   must equal the means of the rows.
+   eval_profile: torch.profiler over one more AV eval step.
+9. eval_card_vs_cpu: one AV and one AO eval step at a small size (unet5,
+   resnet18dilated-256 on 64x64 frames, 65535 samples as in the eval
+   phase, B = 2) from the same He-scaled weights and the same injected
+   draws on the card and on the CPU.  With soft masks (binary_mask 0) the
+   masks must agree to 1e-4 and the metrics within ``EVAL_TOL``; with
+   binary masks the bins must agree as ``EVAL_TOL`` says; and
+   ``eval_metrics`` alone on the same inputs on both devices within
+   ``EVAL_TOL`` (cuSOLVER and cuFFT against LAPACK and pocketfft).
+10. cli_eval, where PIL imports: ``python -m avsep_tpu_torch.main --mode
+   eval`` with the flags of scripts/eval_MUSIC.sh on data/mini/train.csv,
+   ``--num_vis 0``, checkpoints and results under build/: exit 0, one
+   finite results.csv row per clip in each branch.
+Then the kernel table as one JSON line (launches summed over the separate,
+train and eval runs, and by path), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import csv
+import importlib.util
 import json
+import os
+import re
+import shlex
 import subprocess
 import sys
 import time
@@ -73,10 +104,13 @@ import time
 import numpy as np
 import torch
 
-from avsep_tpu_torch import engine, train
-from avsep_tpu_torch.config import Config
+from avsep_tpu_torch import engine, evaluate, train
+from avsep_tpu_torch.config import Config, parse_args
+from avsep_tpu_torch.data.loader import BatchLoader
 from avsep_tpu_torch.ops import kernels
 from avsep_tpu_torch.ops.stft import _reflect_pad, istft_denominator
+from avsep_tpu_torch.ops.warp import unwarp_mask
+from avsep_tpu_torch.utils.meters import new_history
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and the float32 rate outside the
 # tensor cores (dense, at the 700 W power limit)
@@ -127,6 +161,30 @@ TRAIN_SMALL = dict(arch_sound="unet5", audLen=16383, imgSize=64, dft="fft",
 # statistics: against each buffer's largest value.
 TRAIN_TOL = {"loss_rel_err": 1e-5, "momentum_global_l2_err": 1e-2,
              "momentum_l2_err": 5e-2, "param_err": 2e-3, "bn_stats_err": 1e-4}
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(REPO_DIR, "build", "chip_smoke")
+# scripts/eval_MUSIC.sh: its dft is the default "fft"
+EVAL = dict(FLAGSHIP, dft="fft", loss="bce", mask_thres=0.5,
+            img_pool="maxpool", num_mix=2, batch_size_per_gpu=B, num_vis=0)
+EVAL_BATCHES = 4
+# eval_card_vs_cpu: unet5 (ngf 64), resnet18dilated-256 on 64x64 frames,
+# the eval phase's 65535 samples, B = 2
+EVAL_SMALL = dict(arch_sound="unet5", imgSize=64)
+# card vs CPU of one eval step, from the same weights and draws (limits
+# set from the first reading on an H100, NVIDIA H100 80GB HBM3, 700 W).
+# Masks (soft): as card_vs_cpu (read 2.8e-5).  Metrics in dB, float32
+# Cholesky of the loaded Grams (condition number up to 1e7) on cuSOLVER
+# against LAPACK, after cuFFT against pocketfft: end to end with soft
+# masks (read 2.9e-5 dB; limit 1e-3), eval_metrics alone on the same
+# inputs (read 3.8e-6 dB; limit 1e-4), and on narrowband references, two
+# sines whose Grams are singular but for the loading (read 0.033 dB, the
+# same in two runs; limit 0.1).  Binary masks: the
+# share of bins that agree (read 1.0); a value within rounding of the
+# threshold may land on the other side.
+EVAL_TOL = {"masks_max_abs_err": 1e-4, "metrics_max_db_err": 1e-3,
+            "same_input_metrics_max_db_err": 1e-4,
+            "narrowband_metrics_max_db_err": 0.1,
+            "binary_mask_agreement_min": 0.999}
 
 
 def emit(phase: str, **fields) -> None:
@@ -651,6 +709,282 @@ def card_vs_cpu(dev, gen, nets_gpu):
     emit("card_vs_cpu", batch=2, dft="fft", tolerance=1e-4, **res)
 
 
+class Clips:
+    """An in-memory val set of seeded clips, the dataset's sample dicts:
+    per-source waveforms scaled by 1/N and their sum, one uint8 frame per
+    source."""
+
+    def __init__(self, gen, n, aud_len, img):
+        self.items = []
+        for i in range(n):
+            audios = (0.05 * torch.randn(2, aud_len, generator=gen)).numpy()
+            self.items.append({
+                "audios": audios, "audio_mix": audios.sum(0),
+                "frames": torch.randint(0, 256, (2, 1, img, img, 3),
+                                        generator=gen, dtype=torch.uint8
+                                        ).numpy(),
+                "id": f"clip{i:03d}", "class": np.array([0, 1], np.int32)})
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+class EvalTimer:
+    """Wraps ``evaluate.make_eval_step`` and ``evaluate.eval_metrics`` for
+    the length of a ``with`` block: CUDA events around each eval step and
+    each ``eval_metrics`` call, and the kernels' launches per step."""
+
+    def __init__(self):
+        self.steps, self.metrics, self.launches = [], [], []
+
+    @staticmethod
+    def _events():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    def __enter__(self):
+        self._make, self._metrics = (evaluate.make_eval_step,
+                                     evaluate.eval_metrics)
+
+        def timed_metrics(refs, ests):
+            s, e = self._events()
+            s.record()
+            out = self._metrics(refs, ests)
+            e.record()
+            self.metrics.append((s, e))
+            return out
+
+        def timed_make(*args, **kw):
+            step = self._make(*args, **kw)
+
+            def timed_step(batch, **kw2):
+                n0 = (kernels.frame_window.launches,
+                      kernels.overlap_add_normalize.launches)
+                s, e = self._events()
+                s.record()
+                out = step(batch, **kw2)
+                e.record()
+                self.steps.append((s, e))
+                self.launches.append(
+                    (kernels.frame_window.launches - n0[0],
+                     kernels.overlap_add_normalize.launches - n0[1]))
+                return out
+            return timed_step
+
+        evaluate.make_eval_step = timed_make
+        evaluate.eval_metrics = timed_metrics
+        return self
+
+    def __exit__(self, *exc):
+        evaluate.make_eval_step = self._make
+        evaluate.eval_metrics = self._metrics
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return ([s.elapsed_time(e) for s, e in self.steps],
+                [s.elapsed_time(e) for s, e in self.metrics])
+
+
+def read_results(ckpt, branch):
+    with open(os.path.join(ckpt, "visualization", branch,
+                           "results.csv")) as f:
+        return list(csv.DictReader(f))
+
+
+def check_results(rows, history, key, n):
+    """``n`` finite rows, and the history's meters equal to their means."""
+    vals = {k: np.array([float(r[k]) for r in rows])
+            for k in ("sdr", "sir", "si-snr")}
+    if len(rows) != n or not all(np.isfinite(v).all()
+                                 for v in vals.values()):
+        raise AssertionError(f"{key}: {len(rows)} rows (expected {n}) or "
+                             "non-finite metrics in results.csv")
+    for k, col in (("sdr", "sdr"), ("sir", "sir"), ("si_sdr", "si-snr")):
+        mean = float(np.mean(vals[col]))
+        if abs(history[key][k][-1] - mean) > 1e-4 * max(1.0, abs(mean)):
+            raise AssertionError(f"{key} meter {k} {history[key][k][-1]} is "
+                                 f"not the mean of the rows {mean}")
+    return {k: float(np.mean(v)) for k, v in vals.items()}
+
+
+def run_eval(dev, gen):
+    """The recipe of scripts/eval_MUSIC.sh on one card: AV then AO sweeps
+    of ``evaluate.evaluate`` over EVAL_BATCHES batches, warm-up and
+    timed."""
+    ckpt = os.path.join(OUT_DIR, "eval")
+    cfg = Config(**EVAL, ckpt=ckpt)
+    nets = engine.init_params(cfg, engine.build_nets(cfg),
+                              torch.Generator().manual_seed(SEED))
+    clips = Clips(gen, EVAL_BATCHES * B, aud_len=cfg.audLen, img=cfg.imgSize)
+    n = len(clips)
+    loader = BatchLoader(clips, B, shuffle=False, num_workers=4)
+    history = new_history()
+    res, per_step = {}, []
+    for use_vis in (True, False):      # warm-up: plans, handles, kernels
+        evaluate.evaluate(cfg, nets, loader, history, 0, use_vis)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.frame_window.launches = 0
+    kernels.overlap_add_normalize.launches = 0
+    with EvalTimer() as timer:
+        for use_vis in (True, False):
+            branch = "av" if use_vis else "ao"
+            k0 = len(timer.steps)
+            t0 = time.perf_counter()
+            evaluate.evaluate(cfg, nets, loader, history, 0, use_vis)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            steps_ms, metrics_ms = timer.ms()
+            steps_ms, metrics_ms = steps_ms[k0:], metrics_ms[k0:]
+            means = check_results(read_results(ckpt, branch), history,
+                                  "val_" + branch, n)
+            res[branch] = {
+                "ms_per_eval_step": float(np.median(steps_ms)),
+                "eval_step_ms": steps_ms,
+                "eval_metrics_ms": metrics_ms,
+                "eval_metrics_share": sum(metrics_ms) / sum(steps_ms),
+                "clips_per_s": n / wall, "wall_s": wall, "mean_metrics": means}
+    launches = {"frame_window": kernels.frame_window.launches,
+                "overlap_add_normalize":
+                    kernels.overlap_add_normalize.launches}
+    per_step = timer.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if per_step != [(3, 1)] * (2 * EVAL_BATCHES):
+        raise AssertionError(f"(frame_window, overlap_add_normalize) launches "
+                             f"per eval step {per_step}; expected (3, 1)")
+    emit("eval", config="scripts/eval_MUSIC.sh (unet7, resnet18dilated-256, "
+         "hidsep/sig, bce, binary weighted masks, float32, TF32 off, dft "
+         "fft)", batch=B, clips=n, steps_per_branch=EVAL_BATCHES,
+         launches_per_step=per_step, launches=launches, peak_mem_gib=peak,
+         perm_acc=history["val_av"]["perm_acc"][-1], **res)
+    batch = {k: np.stack([clips[i][k] for i in range(B)])
+             for k in ("audios", "frames")}
+    step = evaluate.make_eval_step(cfg, nets, True)
+    noise = torch.Generator(device=dev).manual_seed(SEED)
+    profile_calls("eval_profile", lambda i: step(batch, noise_generator=noise),
+                  1, step="AV eval")
+    return launches
+
+
+def eval_card_vs_cpu(dev, gen):
+    """One AV and one AO eval step at a small size on the card and on the
+    CPU, from the same weights and draws."""
+    cfg = Config(**{**EVAL, **EVAL_SMALL})
+    clips = Clips(gen, 2, aud_len=cfg.audLen, img=cfg.imgSize)
+    batch = {k: np.stack([c[k] for c in clips.items])
+             for k in ("audios", "frames")}
+    L = HOP * (cfg.WS - 1)
+    draws = {"swap_uniforms": torch.rand(2, generator=gen),
+             "noise_uniforms": torch.rand(2, 2, L, generator=gen)}
+    nets, weights = {}, None
+    for d in ("cpu", "cuda"):
+        nets[d] = engine.init_params(cfg, engine.build_nets(cfg, device=d),
+                                     torch.Generator().manual_seed(SEED),
+                                     device=d)
+        if weights is None:
+            spread_weights(nets[d], gen)
+            weights = [net.state_dict() for net in nets[d]]
+        for net, sd in zip(nets[d], weights):
+            net.load_state_dict(sd)
+    res = {}
+    for use_vis in (True, False):
+        branch = "av" if use_vis else "ao"
+        for binary in (0, 1):
+            c = cfg.replace(binary_mask=binary)
+            out = {d: evaluate.make_eval_step(c, nets[d], use_vis, device=d)(
+                batch, **draws) for d in ("cpu", "cuda")}
+            (m_c, o_c, w_c), (m_g, o_g, w_g) = out["cpu"], out["cuda"]
+            db = max((m_g[k].cpu() - m_c[k]).abs().max().item()
+                     for k in ("sdr", "sir", "sar", "si_sdr"))
+            if binary == 0:
+                res[f"{branch}_masks_max_abs_err"] = (
+                    o_g["pred_masks"].cpu() - o_c["pred_masks"]
+                ).abs().max().item()
+                res[f"{branch}_wavs_max_abs_err"] = (
+                    w_g.cpu() - w_c).abs().max().item()
+                res[f"{branch}_metrics_max_db_err"] = db
+                same = evaluate.eval_metrics(
+                    torch.from_numpy(batch["audios"][..., :L]).to(dev),
+                    w_c.to(dev))
+                res[f"{branch}_same_input_metrics_max_db_err"] = max(
+                    (same[k].cpu() - m_c[k]).abs().max().item()
+                    for k in ("sdr", "sir", "sar", "si_sdr"))
+            else:
+                lin = [unwarp_mask(o["pred_masks"].cpu(), HO=cfg.HS)
+                       > cfg.mask_thres for o in (o_c, o_g)]
+                res[f"{branch}_binary_mask_agreement"] = (
+                    lin[0] == lin[1]).float().mean().item()
+                res[f"{branch}_binary_metrics_max_db_err"] = db
+    # narrowband references: two sines per clip, singular Grams but for
+    # the diagonal loading
+    t = torch.arange(L, dtype=torch.float64) / cfg.audRate
+    sines = torch.stack([0.4 * torch.sin(2 * np.pi * f * t)
+                         for f in (220.0, 330.0)]).float()
+    refs = torch.stack([sines, sines.flip(0)])
+    ests = refs + 0.05 * torch.randn(refs.shape, generator=gen)
+    m_c = evaluate.eval_metrics(refs, ests)
+    m_g = evaluate.eval_metrics(refs.to(dev), ests.to(dev))
+    narrow = max((m_g[k].cpu() - m_c[k]).abs().max().item()
+                 for k in ("sdr", "sir", "sar", "si_sdr"))
+    res["narrowband_metrics_max_db_err"] = narrow
+    emit("eval_card_vs_cpu", batch=2, aud_len=cfg.audLen, dft=cfg.dft,
+         tolerance=EVAL_TOL, **res)
+    for key, tol in EVAL_TOL.items():
+        name = key.replace("_min", "")
+        for k in [name] if name in res else [f"av_{name}", f"ao_{name}"]:
+            if (res[k] < tol) if key.endswith("_min") else not res[k] <= tol:
+                raise AssertionError(f"eval card vs CPU: {k} {res[k]} "
+                                     f"against {tol}")
+
+
+def script_flags(name: str):
+    """The flag strings of the ``args=( ... )`` array of ``scripts/<name>``,
+    comments dropped."""
+    with open(os.path.join(REPO_DIR, "scripts", name)) as f:
+        body = re.search(r"^args=\((.*?)^\)", f.read(), re.S | re.M).group(1)
+    return shlex.split("\n".join(line.split("#")[0]
+                                 for line in body.splitlines()))
+
+
+def cli_eval():
+    """``python -m avsep_tpu_torch.main --mode eval`` with the flags of
+    scripts/eval_MUSIC.sh on data/mini/train.csv, where PIL imports."""
+    if importlib.util.find_spec("PIL") is None:
+        emit("cli_eval", skipped="PIL is not installed: the CLI's loader "
+             "decodes the JPEG frames with PIL")
+        return
+    manifest = os.path.join("data", "mini", "train.csv")
+    argv = script_flags("eval_MUSIC.sh") + [
+        "--list_val", manifest, "--num_vis", "0", "--workers", "4",
+        "--ckpt", os.path.join(OUT_DIR, "cli")]
+    cfg = parse_args(argv)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-u", "-m", "avsep_tpu_torch.main",
+                           *argv], cwd=REPO_DIR, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or "Evaluation Done!" not in proc.stdout:
+        raise AssertionError(f"cli_eval exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(os.path.join(REPO_DIR, manifest)) as f:
+        n = cfg.val_repeat * sum(1 for line in f if line.count(",") >= 1)
+    run = os.path.join(cfg.ckpt, cfg.id)
+    means = {}
+    for branch in ("av", "ao"):
+        rows = read_results(run, branch)
+        vals = [float(r[k]) for r in rows for k in ("sdr", "sir", "si-snr")]
+        if len(rows) != n or not np.isfinite(vals).all():
+            raise AssertionError(f"cli_eval {branch}: {len(rows)} rows "
+                                 f"(expected {n}) or non-finite metrics")
+        means[branch] = float(np.mean([float(r["sdr"]) for r in rows]))
+    emit("cli_eval", argv=argv, clips=n, wall_s=wall, mean_sdr=means,
+         summary=[line for line in proc.stdout.splitlines()
+                  if line.startswith("[Eval Summary]")])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -682,17 +1016,23 @@ def main() -> int:
     del nets
     launches = {"separate": sep_launches, "train": run_train(dev, gen)}
     train_card_vs_cpu(dev, gen)
+    launches["eval"] = run_eval(dev, gen)
+    eval_card_vs_cpu(dev, gen)
+    cli_eval()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # launches: the sum over the main paths' runs (16 separate calls, 8
-    # train steps), each counted from 0 just before it; by path beside
+    # train steps, 2 x EVAL_BATCHES eval steps), each counted from 0 just
+    # before it; by path beside
     table = [{**{k: (sum(p[r["name"]] for p in launches.values())
                      if k == "launches" else r[k]) for k in keys},
               "launches_by_path": {path: p[r["name"]]
                                    for path, p in launches.items()},
               "launches_per_train_step": launches["train"][r["name"]]
-              / TRAIN_STEPS}
+              / TRAIN_STEPS,
+              "launches_per_eval_step": launches["eval"][r["name"]]
+              / (2 * EVAL_BATCHES)}
              for r in rows]
     print(json.dumps({"kernels": table}))
     print(nvidia_smi_line())

@@ -67,7 +67,7 @@ SMALL = dict(arch_sound="unet5", arch_frame="tinyconv", num_channels=2,
 
 
 # fields of the JAX package's Config that the port's leaves out
-JAX_ONLY = ("use_pallas", "audio_wire")
+JAX_ONLY = ("use_pallas",)
 
 
 def configs(**kw):

@@ -37,7 +37,9 @@ def _port_modules():
 def test_port_and_chip_smoke_import_without_jax():
     mods = _port_modules() + ["chip_smoke"]
     for name in ("ops.kernels", "engine", "train", "checkpoint",
-                 "models.criterion", "models.torch_import"):
+                 "models.criterion", "models.torch_import", "ops.metrics",
+                 "evaluate", "main", "check_exp", "data.dataset",
+                 "data.loader", "utils.media"):
         assert f"avsep_tpu_torch.{name}" in mods
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _PROBE, *mods], cwd=REPO,
