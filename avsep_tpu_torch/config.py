@@ -165,6 +165,14 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
+# bench.py's flagship (unet7, resnet18dilated-256, hidsep/sig fusion, binary
+# masks, log-frequency warp, one frame): the model serve.py and
+# separate_cli.py run when given no model flags
+FLAGSHIP = Config(arch_sound="unet7", num_channels=2, vis_channels=256,
+                  fusion_type="hidsep", att_type="sig", not_pool_vis=False,
+                  img_activation="relu", output_activation="sigmoid",
+                  binary_mask=1, log_freq=1, one_frame=True)
+
 # ROADMAP.md, where each feature the port lacks waits
 DTYPE_ITEM = "ROADMAP.md Queue 2, item 2 (a bf16 or TF32 mode)"
 MESH_ITEM = "ROADMAP.md Queue 1, 'parallel/' (torch.distributed DDP)"

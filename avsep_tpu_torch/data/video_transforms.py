@@ -128,6 +128,24 @@ def val_transform(frames: List[Image.Image], img_size: int) -> np.ndarray:
     return to_uint8_array(frames)
 
 
+def to_normalized_array(frames: Sequence[Image.Image]) -> np.ndarray:
+    """PIL list -> [T, H, W, 3] float32, /255 then ImageNet-normalized
+    (reference video_transforms.py:155-203), the demos' frames."""
+    x = np.stack([np.asarray(img.convert("RGB"), np.float32) / 255.0
+                  for img in frames])
+    return (x - IMAGENET_MEAN) / IMAGENET_STD
+
+
+def val_transform_normalized(frames: List[Image.Image],
+                             img_size: int) -> np.ndarray:
+    """Resize -> CenterCrop -> normalize: the JAX package's
+    ``val_transform`` at its default ``normalize=True``, which the demos and
+    the separation CLI read."""
+    frames = resize_shorter(frames, img_size)
+    frames = center_crop(frames, img_size)
+    return to_normalized_array(frames)
+
+
 def denormalize(frame: np.ndarray) -> np.ndarray:
     """[H, W, 3] normalized -> uint8 RGB (reference utils.recover_rgb).
     uint8 wire-format frames are already RGB and pass through."""

@@ -78,33 +78,9 @@ def make_eval_step(cfg: Config, nets: Nets, use_vis: bool, device=None):
         err, outputs = engine.forward(nets, batch, cfg, use_vis, train=False,
                                       swap_uniforms=swap_uniforms,
                                       generator=generator)
-        mag_mix, phase_mix = stft_magphase(engine.audio_mix_of(batch),
-                                           cfg.stft_frame, cfg.stft_hop,
-                                           dft=cfg.dft)
-        pred = outputs["pred_masks"]                         # [B, N, FO, T]
-        pred_lin = unwarp_mask(pred, HO=cfg.HS) if cfg.log_freq else pred
-        if cfg.binary_mask:
-            pred_lin = (pred_lin > cfg.mask_thres).float()
-
-        spec = (mag_mix[:, None] * pred_lin).to(torch.complex64) * torch.exp(
-            1j * phase_mix[:, None].to(torch.complex64))
-        preds_wav = torch.clamp(istft(spec, cfg.stft_hop, dft=cfg.dft),
-                                -1.0, 1.0)
-
-        # all-zero predictions -> noise floor (reference main.py:248-249)
-        if noise_uniforms is None:
-            if noise_generator is None:
-                raise ValueError("the noise floor needs noise_uniforms or a "
-                                 "noise_generator")
-            noise_uniforms = torch.rand(preds_wav.shape,
-                                        generator=noise_generator, device=dev)
-        allzero = torch.all(preds_wav == 0, dim=-1, keepdim=True)
-        noise = 0.01 * torch.as_tensor(noise_uniforms, dtype=torch.float32,
-                                       device=dev)
-        preds_wav = torch.where(allzero, noise, preds_wav)
-
-        gts_wav = engine.audios_of(batch)[..., :preds_wav.shape[-1]]
-        metrics = eval_metrics(gts_wav, preds_wav)
+        metrics, preds_wav = score_masks(
+            cfg, batch, outputs["pred_masks"], noise_uniforms=noise_uniforms,
+            noise_generator=noise_generator)
         metrics["err"] = err
         for k in ("match_loss", "err_ps", "match_ps"):
             metrics[k] = outputs[k]
@@ -115,6 +91,44 @@ def make_eval_step(cfg: Config, nets: Nets, use_vis: bool, device=None):
         return metrics, outputs, preds_wav
 
     return step
+
+
+def score_masks(cfg: Config, batch: Dict[str, torch.Tensor],
+                pred_masks: torch.Tensor, *, noise_uniforms=None,
+                noise_generator=None):
+    """Steps 2 to 7 of an eval step on ``pred_masks [B, N, FO, T]`` and the
+    batch on their device: the mixture's STFT, the unwarp, the threshold,
+    the iSTFT with the mixture's phase and the clip, the noise floor (from
+    ``noise_uniforms`` or ``noise_generator``), ``eval_metrics`` against
+    the sources.  Returns ``(metrics, preds_wav)``."""
+    dev = pred_masks.device
+    mag_mix, phase_mix = stft_magphase(engine.audio_mix_of(batch),
+                                       cfg.stft_frame, cfg.stft_hop,
+                                       dft=cfg.dft)
+    pred_lin = unwarp_mask(pred_masks, HO=cfg.HS) if cfg.log_freq \
+        else pred_masks
+    if cfg.binary_mask:
+        pred_lin = (pred_lin > cfg.mask_thres).float()
+
+    spec = (mag_mix[:, None] * pred_lin).to(torch.complex64) * torch.exp(
+        1j * phase_mix[:, None].to(torch.complex64))
+    preds_wav = torch.clamp(istft(spec, cfg.stft_hop, dft=cfg.dft),
+                            -1.0, 1.0)
+
+    # all-zero predictions -> noise floor (reference main.py:248-249)
+    if noise_uniforms is None:
+        if noise_generator is None:
+            raise ValueError("the noise floor needs noise_uniforms or a "
+                             "noise_generator")
+        noise_uniforms = torch.rand(preds_wav.shape,
+                                    generator=noise_generator, device=dev)
+    allzero = torch.all(preds_wav == 0, dim=-1, keepdim=True)
+    noise = 0.01 * torch.as_tensor(noise_uniforms, dtype=torch.float32,
+                                   device=dev)
+    preds_wav = torch.where(allzero, noise, preds_wav)
+
+    gts_wav = engine.audios_of(batch)[..., :preds_wav.shape[-1]]
+    return eval_metrics(gts_wav, preds_wav), preds_wav
 
 
 def perm_correct(pred_masks: torch.Tensor, gt_masks: torch.Tensor,

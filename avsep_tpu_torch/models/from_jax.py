@@ -12,6 +12,9 @@ renames leaves and transposes kernels (the layouts of
   ``running_var``, plus the ``num_batches_tracked`` buffer (0) that a
   strict ``load_state_dict`` asks for.
 
+The SoP++ synthesizer's parameters (``InnerProd``: ``scale``, ``bias``;
+``Bias``: ``bias``) keep their names: its ``state_dict`` is the JAX tree.
+
 The trees are nested mappings of array-likes (numpy arrays, or anything
 ``np.asarray`` takes); the module reads them with numpy alone.
 """
@@ -73,3 +76,18 @@ def load_from_jax(nets, params: Mapping, batch_stats: Mapping) -> None:
         module = getattr(nets, key)
         sd = state_dict_from_jax(params[key], batch_stats[key])
         module.load_state_dict(sd, strict=True)
+
+
+def synthesizer_state_dict_from_jax(params: Mapping
+                                    ) -> Dict[str, torch.Tensor]:
+    """The SoP++ synthesizer's JAX ``params`` -> its ``state_dict``."""
+    return {k: torch.from_numpy(np.array(v)) for k, v in params.items()}
+
+
+def load_sop_from_jax(nets, params: Mapping, batch_stats: Mapping) -> None:
+    """Load the JAX package's SoP++ state (``params`` of ``sound``,
+    ``frame`` and ``synthesizer``; ``batch_stats`` of ``sound`` and
+    ``frame``) into the port's ``SopNets``, strictly."""
+    load_from_jax(nets, params, batch_stats)
+    nets.synthesizer.load_state_dict(
+        synthesizer_state_dict_from_jax(params["synthesizer"]), strict=True)

@@ -14,8 +14,9 @@ conversion only renames keys onto the port's module names:
   raw torchvision ``resnet18`` dict (``conv1.weight``...); a 4-D ``fc`` is
   the reference's 3x3 projection, a 2-D one torchvision's classifier
   (dropped).
-
-The SoP++ synthesizer's loader waits for the SoP++ slice.
+* SoP++ synthesizer (``models/synthesizer_net.py:6-70``): ``scale`` (for
+  ``InnerProd``) and ``bias`` under their own names.  The SoP++ basis
+  U-Net (``SoP++/audio_net.py``) has the U-Net's keys.
 """
 
 from __future__ import annotations
@@ -97,6 +98,16 @@ def resnet_state_dict_from_torch(sd: Mapping, with_fc: bool = True
     if with_fc and "fc.weight" in sd and sd["fc.weight"].dim() == 4:
         out["fc.weight"] = sd["fc.weight"]
         out["fc.bias"] = sd["fc.bias"]
+    return out
+
+
+def synthesizer_state_dict_from_torch(sd: Mapping
+                                      ) -> Dict[str, torch.Tensor]:
+    """A reference ``InnerProd`` / ``Bias`` ``state_dict`` -> the port's
+    :mod:`~avsep_tpu_torch.models.synthesizer` keys."""
+    out = {"bias": sd["bias"]}
+    if "scale" in sd:
+        out["scale"] = sd["scale"]
     return out
 
 

@@ -2,11 +2,12 @@
 
 Port of ``avsep_tpu/train.py`` (reference ``main.py:536-601``):
 
-* SGD with momentum ``beta1`` and weight decay in two groups (reference
+* SGD with momentum ``beta1`` and weight decay in groups (reference
   ``create_optimizer``, main.py:536-547): group ``sound`` holds ``sound.*``
   and ``frame.fc.*`` at ``lr_sound``; group ``frame`` holds
   ``frame.features.*`` at ``lr_frame``, or gets a zero update and no state
-  under ``fix_vis``.
+  under ``fix_vis``.  The SoP++ nets add group ``synth``
+  (``synthesizer.*``, at ``lr_synthesizer``; reference SoP++/main.py:743-756).
 * One step = one forward (AV or AO), one backward, one SGD update
   (reference ``train_step``, main.py:557-569); ``batch_scheduler`` says
   which steps are AV (main.py:572-601).
@@ -16,9 +17,9 @@ because it reproduces the JAX package's optax chain, per group:
 ``buf = (g + weight_decay * p) + beta1 * buf``, then ``p -= lr * buf``,
 where ``lr = base * 0.1 ** #{s in lr_steps : count >= s}`` is read at the
 group's update count *before* the update (``optax.piecewise_constant_
-schedule``).  In an AO step only group ``sound`` advances: the frame net's
-parameters (``frame.features`` and ``frame.fc``) get a zero update and the
-``frame`` group's count and buffers stay as they were, so its schedule
+schedule``).  In an AO step every group but ``frame`` advances: the frame
+net's parameters (``frame.features`` and ``frame.fc``) get a zero update and
+the ``frame`` group's count and buffers stay as they were, so its schedule
 counts AV steps only; ``frame.fc`` rides group ``sound``, so its buffer
 still becomes ``beta1 * buf + weight_decay * p`` while its value stays
 frozen (the JAX package's "residual inexactness", train.py:160-163,
@@ -43,8 +44,6 @@ from avsep_tpu_torch.models.torch_import import (
     load_torch_checkpoint, resnet_state_dict_from_torch,
     unet_state_dict_from_torch)
 
-GROUPS = ("sound", "frame")
-
 
 @dataclasses.dataclass
 class GroupState:
@@ -56,9 +55,9 @@ class GroupState:
 
 @dataclasses.dataclass
 class TrainState:
-    """``step``, the nets (parameters and BatchNorm buffers) and the
-    optimizer state per group (None for a group with no state: ``frame``
-    under ``fix_vis``)."""
+    """``step``, the nets (``engine.Nets`` or ``sop_engine.SopNets``: their
+    parameters and BatchNorm buffers) and the optimizer state per group
+    (None for a group with no state: ``frame`` under ``fix_vis``)."""
     step: int
     nets: Nets
     opt_state: Dict[str, Optional[GroupState]]
@@ -66,8 +65,7 @@ class TrainState:
     def state_dict(self) -> Dict:
         """Everything a checkpoint holds, as plain dicts of tensors."""
         return {"step": self.step,
-                "sound": self.nets.sound.state_dict(),
-                "frame": self.nets.frame.state_dict(),
+                **{name: net.state_dict() for name, net in modules(self.nets)},
                 "opt_state": {g: None if s is None else
                               {"count": s.count, "momentum": s.momentum}
                               for g, s in self.opt_state.items()}}
@@ -75,8 +73,8 @@ class TrainState:
     def load_state_dict(self, sd: Dict) -> None:
         """Copy a :meth:`state_dict` into this state, strictly, onto the
         nets' device."""
-        self.nets.sound.load_state_dict(sd["sound"], strict=True)
-        self.nets.frame.load_state_dict(sd["frame"], strict=True)
+        for name, net in modules(self.nets):
+            net.load_state_dict(sd[name], strict=True)
         if set(sd["opt_state"]) != set(self.opt_state):
             raise ValueError(f"optimizer groups {sorted(sd['opt_state'])} do "
                              f"not match {sorted(self.opt_state)}")
@@ -96,18 +94,28 @@ class TrainState:
         self.step = int(sd["step"])
 
 
-def named_parameters(nets: Nets) -> Iterator[Tuple[str, torch.nn.Parameter]]:
-    """Both nets' parameters, named ``sound.*`` and ``frame.*``."""
-    for net in ("sound", "frame"):
-        for name, p in getattr(nets, net).named_parameters():
+def modules(nets) -> List[Tuple[str, torch.nn.Module]]:
+    """The nets by field name: ``sound``, ``frame``, and ``synthesizer``
+    for the SoP++ nets."""
+    return list(nets._asdict().items())
+
+
+def named_parameters(nets) -> Iterator[Tuple[str, torch.nn.Parameter]]:
+    """The nets' parameters, named ``sound.*``, ``frame.*``,
+    ``synthesizer.*``."""
+    for net, module in modules(nets):
+        for name, p in module.named_parameters():
             yield f"{net}.{name}", p
 
 
 def param_group(name: str) -> str:
-    """``sound.*`` and ``frame.fc.*`` -> ``"sound"``; ``frame.features.*``
-    -> ``"frame"`` (reference create_optimizer, main.py:536-547)."""
+    """``sound.*`` and ``frame.fc.*`` -> ``"sound"``; ``synthesizer.*`` ->
+    ``"synth"``; ``frame.features.*`` -> ``"frame"`` (reference
+    create_optimizer, main.py:536-547; SoP++/main.py:743-756)."""
     if name.startswith("sound.") or name.startswith("frame.fc."):
         return "sound"
+    if name.startswith("synthesizer."):
+        return "synth"
     if name.startswith("frame.features."):
         return "frame"
     raise ValueError(f"parameter {name!r} belongs to no optimizer group")
@@ -125,23 +133,24 @@ def lr_at(base: float, lr_steps, count: int) -> float:
 
 
 def _base_lr(cfg: Config, group: str) -> float:
-    return cfg.lr_sound if group == "sound" else cfg.lr_frame
+    return {"sound": cfg.lr_sound, "synth": cfg.lr_synthesizer,
+            "frame": cfg.lr_frame}[group]
 
 
-def init_opt_state(cfg: Config, nets: Nets) -> Dict[str, Optional[GroupState]]:
-    """Count 0 and zero momentum buffers for every group that has state."""
+def init_opt_state(cfg: Config, nets) -> Dict[str, Optional[GroupState]]:
+    """Count 0 and zero momentum buffers for every group of the nets'
+    parameters; None for ``frame`` under ``fix_vis``."""
     if cfg.load_clips:
         raise NotImplementedError("the motion group (--load_clips) is not "
                                   f"ported yet ({engine.MOTION_ITEM})")
-    state: Dict[str, Optional[GroupState]] = {
-        g: GroupState(0, {}) for g in GROUPS}
-    if cfg.fix_vis:
-        state["frame"] = None
+    state: Dict[str, Optional[GroupState]] = {}
     for name, p in named_parameters(nets):
-        gs = state[param_group(name)]
-        if gs is not None:
-            gs.momentum[name] = torch.zeros_like(p, memory_format=
-                                                 torch.contiguous_format)
+        g = param_group(name)
+        if g == "frame" and cfg.fix_vis:
+            state[g] = None
+            continue
+        state.setdefault(g, GroupState(0, {})).momentum[name] = \
+            torch.zeros_like(p, memory_format=torch.contiguous_format)
     return state
 
 
@@ -167,11 +176,12 @@ def init_state(cfg: Config, nets: Nets, generator: torch.Generator,
     return TrainState(0, nets, init_opt_state(cfg, nets))
 
 
-def _groups_of(cfg: Config, use_vis: bool) -> List[str]:
-    """The groups that advance in a step: both in an AV step (less
-    ``frame`` under ``fix_vis``), ``sound`` alone in an AO step."""
-    groups = list(GROUPS) if use_vis else ["sound"]
-    return [g for g in groups if not (g == "frame" and cfg.fix_vis)]
+def _groups_of(state: TrainState, use_vis: bool) -> List[str]:
+    """The groups that advance in a step: every group with state in an AV
+    step (``frame`` has none under ``fix_vis``), all but ``frame`` in an
+    AO step."""
+    return [g for g, s in state.opt_state.items()
+            if s is not None and (use_vis or g != "frame")]
 
 
 @torch.no_grad()
@@ -181,7 +191,7 @@ def _sgd_update(cfg: Config, state: TrainState, params: Dict, grads: Dict,
     whole group at once (``torch._foreach_*``), rounded as optax rounds it:
     ``u = g + wd * p``, ``buf = beta1 * buf + u``, ``p += (-lr) * buf``."""
     wd, beta1 = cfg.weight_decay, cfg.beta1
-    for g in _groups_of(cfg, use_vis):
+    for g in _groups_of(state, use_vis):
         gs = state.opt_state[g]
         neg_lr = -lr_at(_base_lr(cfg, g), cfg.lr_steps, gs.count)
         names = list(gs.momentum)
@@ -203,6 +213,19 @@ def _sgd_update(cfg: Config, state: TrainState, params: Dict, grads: Dict,
         gs.count += 1
 
 
+def apply_gradients(cfg: Config, state: TrainState, err: torch.Tensor,
+                    use_vis: bool) -> None:
+    """The gradient of ``err`` for the parameters of the groups that
+    advance, then one SGD update of those groups, in place; ``step`` + 1."""
+    params = dict(named_parameters(state.nets))
+    groups = _groups_of(state, use_vis)
+    live = [n for n in params if param_group(n) in groups]
+    grads = torch.autograd.grad(err, [params[n] for n in live],
+                                allow_unused=True)
+    _sgd_update(cfg, state, params, dict(zip(live, grads)), use_vis)
+    state.step += 1
+
+
 def make_train_step(cfg: Config, nets: Nets, use_vis: bool,
                     device=None) -> Callable:
     """Returns ``step(state, batch, *, swap_uniforms=None, generator=None)
@@ -215,16 +238,10 @@ def make_train_step(cfg: Config, nets: Nets, use_vis: bool,
 
     def step(state: TrainState, batch, *, swap_uniforms=None,
              generator=None) -> Tuple[TrainState, Dict]:
-        params = dict(named_parameters(state.nets))
-        live = [n for n in params
-                if param_group(n) in _groups_of(cfg, use_vis)]
         err, outputs = engine.forward(
             state.nets, batch, cfg, use_vis, train=True,
             swap_uniforms=swap_uniforms, generator=generator)
-        grads = torch.autograd.grad(err, [params[n] for n in live],
-                                    allow_unused=True)
-        _sgd_update(cfg, state, params, dict(zip(live, grads)), use_vis)
-        state.step += 1
+        apply_gradients(cfg, state, err, use_vis)
         return state, {"err": err.detach(),
                        "match_loss": outputs["match_loss"].detach()}
 

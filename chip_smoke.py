@@ -80,12 +80,39 @@ script exits non-zero before printing any result.
    binary masks the bins must agree as ``EVAL_TOL`` says; and
    ``eval_metrics`` alone on the same inputs on both devices within
    ``EVAL_TOL`` (cuSOLVER and cuFFT against LAPACK and pocketfft).
-10. cli_eval, where PIL imports: ``python -m avsep_tpu_torch.main --mode
-   eval`` with the flags of scripts/eval_MUSIC.sh on data/mini/train.csv,
-   ``--num_vis 0``, checkpoints and results under build/: exit 0, one
-   finite results.csv row per clip in each branch.
-Then the kernel table as one JSON line (launches summed over the separate,
-train and eval runs, and by path), the nvidia-smi line, and last
+10. cli_eval: ``python -m avsep_tpu_torch.main --mode eval`` with the
+   flags of scripts/eval_MUSIC.sh on data/mini/train.csv, ``--num_vis 0``,
+   checkpoints and results under build/: exit 0, one finite results.csv
+   row per clip in each branch.  PIL must import.
+11. serve: ``serve.SeparationService`` with serve.main's defaults
+   (config.FLAGSHIP, max_batch 8, max_wait 5 ms) behind a TCP server on
+   loopback; 8 closed-loop clients send 64 requests, half AV with uint8
+   frames, after a warm-up dispatch per group: requests/s, request and
+   dispatch p50 / p95, mean batch, peak memory; one launch of each kernel
+   per dispatch; one AO and one AV dispatch bit for bit against a direct
+   ``engine.separate`` on the same padded batch and draws; the int16 wire
+   over 30 dB SNR against f32.
+12. separate_cli, inference (vis, share, sweep, synthesis with the flags
+   of scripts/inference.sh on manifests written from data/mini) and, at
+   the end, pixelwise (scripts/vis_sound_map.sh): ``python -m`` runs in
+   child processes that report their kernels' launches (``run_module``);
+   exit 0, their files, one launch of each kernel per separate() call
+   (pixelwise: one frame_window, no iSTFT).
+   vis_t180: ``inference.vis_video`` on a synthetic 30 fps clip, 180
+   display frames in one separate() call: wall, peak memory, launches.
+13. sop_train: scripts/train_SoPpp.sh at full width on one card (B = 16,
+   float32, TF32 off): a warm-up step of each kind (AO, AV stages 1, 2,
+   3), then 3 timed steps of each; ms per step by kind, samples/s, peak
+   memory; frame_window twice per step, finite losses, AO steps leave the
+   frame net and the frame group's momentum bit for bit.
+   sop_card_vs_cpu: one step of each kind at a small size, card against
+   CPU, within ``SOP_TOL``.
+   sop_cli: ``python -m avsep_tpu_torch.sop_main --mode train`` with the
+   script's flags on data/mini/train.csv, iterations 1 to 3 and an eval:
+   "Training Done!", one finite row per clip and branch, launches 2 per
+   train step and 3 + 1 per eval step.
+Then the kernel table as one JSON line (launches summed over the main
+paths' runs, by path and per call), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -104,7 +131,7 @@ import time
 import numpy as np
 import torch
 
-from avsep_tpu_torch import engine, evaluate, train
+from avsep_tpu_torch import config, engine, evaluate, train
 from avsep_tpu_torch.config import Config, parse_args
 from avsep_tpu_torch.data.loader import BatchLoader
 from avsep_tpu_torch.ops import kernels
@@ -185,6 +212,32 @@ EVAL_TOL = {"masks_max_abs_err": 1e-4, "metrics_max_db_err": 1e-3,
             "same_input_metrics_max_db_err": 1e-4,
             "narrowband_metrics_max_db_err": 0.1,
             "binary_mask_agreement_min": 0.999}
+# serve: serve.main's defaults (config.FLAGSHIP, max_batch 8, max_wait 5 ms),
+# closed-loop TCP clients on loopback, half of them AO and half AV
+SERVE = dict(max_batch=8, max_wait_ms=5.0)
+SERVE_CLIENTS, SERVE_REQUESTS = 8, 64
+# the mini duet clips and their frames (6.5 s at 11025 Hz, 28 jpgs at 4 fps)
+DUET_DIR = os.path.join("data", "mini", "audio_duet", "cello flute")
+DUET_FRAMES = os.path.join("data", "mini", "frames_duet", "cello flute")
+# vis_video at a 30 fps window: 6 s x 30 display frames
+VIS_FPS = 30
+# sop_train: each kind of step (AO, AV at stages 1, 2, 3), SOP_WARMUP
+# warm-up steps and SOP_STEPS timed steps of each, interleaved
+SOP_KINDS = ((False, 1), (True, 1), (True, 2), (True, 3))
+SOP_WARMUP, SOP_STEPS = 1, 3
+# sop_card_vs_cpu: the SoP++ recipe at unet5 (ngf 64), resnet18dilated-32 on
+# 64x64 frames, 16383 samples, B = 2, soft masks, one step of each kind
+SOP_SMALL = dict(arch_sound="unet5", audLen=16383, imgSize=64, binary_mask=0,
+                 batch_size_per_gpu=2)
+# card vs CPU after an AV stage-1, an AO, an AV stage-2 and an AV stage-3
+# step from the same He-scaled weights: the quantities and their reasons as
+# TRAIN_TOL.  On an H100 (NVIDIA H100 80GB HBM3, 700 W) this read: losses
+# 1.2e-7; momentum buffers 3.0e-5 over all buffers and 2.1e-4 per buffer in
+# L2 norm, 5.6e-4 on a buffer's largest entry (reported); parameters within
+# their ulps (-9.2e-5); running statistics 1.4e-6.  The limits are 33x and
+# 24x the momentum readings (no fusion permutation to flip here, unlike
+# the flagship's), TRAIN_TOL's for the rest.
+SOP_TOL = dict(TRAIN_TOL, momentum_global_l2_err=1e-3, momentum_l2_err=5e-3)
 
 
 def emit(phase: str, **fields) -> None:
@@ -635,6 +688,17 @@ def train_card_vs_cpu(dev, gen):
                 st, b, swap_uniforms=swap)
             ms.append(float(m["err"]))
         states[d], metrics[d] = st, ms
+    res = compare_states(states, metrics, p0)
+    emit("train_card_vs_cpu", batch=2, dft="fft", binary_mask=0,
+         steps=["AV", "AO"], tolerance=TRAIN_TOL, losses_cuda=metrics["cuda"],
+         losses_cpu=metrics["cpu"], **res)
+    check_tol("train card vs CPU", res, TRAIN_TOL)
+
+
+def compare_states(states, metrics, p0):
+    """Card against CPU after the same steps from the same weights
+    (``p0``, the parameters before them): losses, parameters against their
+    change, momentum buffers, running statistics, group counts."""
     res = {"loss_rel_err": max(abs(g / c - 1.0) for g, c in
                                zip(metrics["cuda"], metrics["cpu"]))}
     g_sd, c_sd = states["cuda"].state_dict(), states["cpu"].state_dict()
@@ -670,15 +734,17 @@ def train_card_vs_cpu(dev, gen):
         for net in ("sound", "frame") for k, v in c_sd[net].items()
         if k.endswith(("running_mean", "running_var")))
     res["counts"] = {g: s["count"] for g, s in g_sd["opt_state"].items()}
-    emit("train_card_vs_cpu", batch=2, dft="fft", binary_mask=0,
-         steps=["AV", "AO"], tolerance=TRAIN_TOL, losses_cuda=metrics["cuda"],
-         losses_cpu=metrics["cpu"], **res)
-    for key, tol in TRAIN_TOL.items():
-        if not res[key] <= tol:
-            raise AssertionError(f"train card vs CPU: {key} {res[key]} > "
-                                 f"{tol}")
-    if res["counts"] != {g: s["count"] for g, s in c_sd["opt_state"].items()}:
-        raise AssertionError("train card vs CPU: group counts differ")
+    res["counts_equal"] = res["counts"] == {
+        g: s["count"] for g, s in c_sd["opt_state"].items()}
+    return res
+
+
+def check_tol(what, res, tol):
+    for key, limit in tol.items():
+        if not res[key] <= limit:
+            raise AssertionError(f"{what}: {key} {res[key]} > {limit}")
+    if not res["counts_equal"]:
+        raise AssertionError(f"{what}: group counts differ")
 
 
 def card_vs_cpu(dev, gen, nets_gpu):
@@ -951,11 +1017,12 @@ def script_flags(name: str):
 
 def cli_eval():
     """``python -m avsep_tpu_torch.main --mode eval`` with the flags of
-    scripts/eval_MUSIC.sh on data/mini/train.csv, where PIL imports."""
+    scripts/eval_MUSIC.sh on data/mini/train.csv.  The CLI's loader decodes
+    the JPEG frames with PIL, which the card's machine has: without it the
+    phase fails."""
     if importlib.util.find_spec("PIL") is None:
-        emit("cli_eval", skipped="PIL is not installed: the CLI's loader "
-             "decodes the JPEG frames with PIL")
-        return
+        raise AssertionError("cli_eval: PIL is not installed; the CLI's "
+                             "loader decodes the JPEG frames with PIL")
     manifest = os.path.join("data", "mini", "train.csv")
     argv = script_flags("eval_MUSIC.sh") + [
         "--list_val", manifest, "--num_vis", "0", "--workers", "4",
@@ -983,6 +1050,509 @@ def cli_eval():
     emit("cli_eval", argv=argv, clips=n, wall_s=wall, mean_sdr=means,
          summary=[line for line in proc.stdout.splitlines()
                   if line.startswith("[Eval Summary]")])
+
+
+# ------------------------------------------------------------- slice 5
+
+
+_CHILD = """
+import json, runpy, sys
+from avsep_tpu_torch.ops import kernels
+sys.argv = sys.argv[1:]
+try:
+    runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+finally:
+    print(json.dumps({"launches": {
+        "frame_window": kernels.frame_window.launches,
+        "overlap_add_normalize": kernels.overlap_add_normalize.launches}}),
+        flush=True)
+"""
+
+
+def run_module(phase, module, argv, timeout=600):
+    """``python -m module argv...`` in a child process (through
+    ``runpy.run_module``, what ``-m`` runs), from the repository's root;
+    the child prints its kernels' launch counts as its last line.  Returns
+    (wall seconds, stdout, launches); raises if the child fails."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-u", "-c", _CHILD, module, *argv],
+                          cwd=REPO_DIR, capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{phase}: python -m {module} exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    launches = json.loads(proc.stdout.strip().splitlines()[-1])["launches"]
+    return wall, proc.stdout, launches
+
+
+def opts_flags(name: str):
+    """The flag strings of the ``OPTS+="..."`` lines of ``scripts/<name>``."""
+    with open(os.path.join(REPO_DIR, "scripts", name)) as f:
+        parts = re.findall(r'^OPTS\+="([^"]*)"', f.read(), re.M)
+    return shlex.split(" ".join(parts))
+
+
+def reset_launches():
+    kernels.frame_window.launches = 0
+    kernels.overlap_add_normalize.launches = 0
+
+
+def read_launches():
+    return {"frame_window": kernels.frame_window.launches,
+            "overlap_add_normalize": kernels.overlap_add_normalize.launches}
+
+
+def expect_launches(phase, got, frame_window, overlap_add):
+    want = {"frame_window": frame_window,
+            "overlap_add_normalize": overlap_add}
+    if got != want:
+        raise AssertionError(f"{phase}: launches {got}, expected {want}")
+
+
+def pct(values, p):
+    v = sorted(values)
+    return v[min(len(v) - 1, int(p * len(v)))]
+
+
+def run_serve(dev):
+    """``serve.SeparationService`` with serve.main's default model and
+    knobs behind a TCP server on loopback; SERVE_CLIENTS closed-loop
+    clients send SERVE_REQUESTS requests, half AO and half AV with uint8
+    frames, after a warm-up dispatch of each group.  Then one AO and one AV
+    dispatch against a direct ``engine.separate`` on the same padded batch
+    and draws, and the int16 wire against f32."""
+    import socket
+    import threading
+
+    from avsep_tpu_torch import serve
+    cfg = config.FLAGSHIP
+    nets = train.init_state(cfg, engine.build_nets(cfg),
+                            torch.Generator().manual_seed(SEED)).nets
+    svc = serve.SeparationService(cfg, nets, rng_seed=SEED, **SERVE)
+    server = serve.serve_forever(svc, port=0)
+    host, port = server.server_address
+    rs = np.random.RandomState(SEED)
+    mixes = [(0.1 * rs.randn(cfg.audLen)).astype(np.float32)
+             for _ in range(SERVE_REQUESTS)]
+    frames = [rs.randint(0, 256, svc.frames_shape, dtype=np.uint8)
+              for _ in range(SERVE_REQUESTS)]
+    outs, lat, errors = {}, [], []
+    try:
+        for f in (None, frames[0]):         # warm-up: one dispatch each
+            serve.separate_remote(host, port, mixes[0], frames=f,
+                                  timeout=600)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        svc.stats = serve.ServiceStats()
+        reset_launches()
+
+        def client(c):
+            try:
+                with socket.create_connection((host, port),
+                                              timeout=600) as sock:
+                    # clients of odd index send frames: half AV, half AO
+                    for i in range(c, SERVE_REQUESTS, SERVE_CLIENTS):
+                        t0 = time.perf_counter()
+                        outs[i] = serve.separate_remote(
+                            host, port, mixes[i],
+                            frames=frames[i] if c % 2 else None, sock=sock)
+                        lat.append(1e3 * (time.perf_counter() - t0))
+            except Exception as e:  # reported below, with the others
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"serve: clients failed or hung: {errors}")
+        torch.cuda.synchronize()
+        launches = read_launches()
+        snap = svc.stats.snapshot()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        server.shutdown()
+        server.server_close()
+    L = HOP * (cfg.WS - 1)
+    if sorted(outs) != list(range(SERVE_REQUESTS)) or snap["requests"] \
+            != SERVE_REQUESTS:
+        raise AssertionError(f"serve: {len(outs)} replies, "
+                             f"{snap['requests']} requests")
+    for o in outs.values():
+        if o.shape != (2, L) or not np.isfinite(o).all() \
+                or np.abs(o).max() > 1.0:
+            raise AssertionError("serve: a reply is not finite [2, L'] in "
+                                 "[-1, 1]")
+    expect_launches("serve", launches, snap["dispatches"],
+                    snap["dispatches"])
+
+    # one dispatch of each group against engine.separate on the same padded
+    # batch and draws
+    svc.max_wait_s = 1.0                    # one dispatch per group
+    drawn, draw = [], svc.draw_swap
+
+    def recording_draw():
+        drawn.append(draw())
+        return drawn[-1]
+    svc.draw_swap = recording_draw
+    n = svc.max_batch - 1
+    padded = np.zeros((svc.max_batch, cfg.audLen), np.float32)
+    padded[:n] = np.clip(np.stack(mixes[:n]), -1.0, 1.0)
+    parity = {}
+    for av in (False, True):
+        futs = [svc.submit(mixes[i], frames[i] if av else None)
+                for i in range(n)]
+        got = np.stack([f.result(timeout=600) for f in futs])
+        if av:
+            fr = np.stack([frames[i] for i in range(n)] + [frames[0]])
+            fr = engine.imagenet_normalize(torch.from_numpy(
+                fr.astype(np.float32) / 255.0).to(dev))
+            want = engine.separate(nets, padded, fr, cfg)["wavs"]
+        else:
+            want = engine.separate(nets, padded, None, cfg,
+                                   swap_uniforms=drawn[-1])["wavs"]
+        want = want[:n].cpu().numpy()
+        parity["av" if av else "ao"] = float(np.abs(got - want).max())
+        if not np.array_equal(got, want):
+            raise AssertionError(f"serve: a dispatch differs from a direct "
+                                 f"separate on its padded batch: {parity}")
+    svc.close()
+
+    # the int16 wire against f32 on the same AV requests
+    snr = []
+    svc16 = serve.SeparationService(cfg, nets, rng_seed=SEED, wire="int16",
+                                    **SERVE)
+    try:
+        svc32 = serve.SeparationService(cfg, nets, rng_seed=SEED, **SERVE)
+        try:
+            for i in range(4):
+                a = svc32.submit(mixes[i], frames[i]).result(timeout=600)
+                b = svc16.submit(mixes[i], frames[i]).result(timeout=600)
+                snr.append(float(20 * np.log10(np.linalg.norm(a) / max(
+                    np.linalg.norm(a - b), 1e-12))))
+        finally:
+            svc32.close()
+    finally:
+        svc16.close()
+    if min(snr) <= 30.0:
+        raise AssertionError(f"serve: int16 wire SNR {snr} dB, need > 30")
+    emit("serve", config="serve.main's default (bench.py flagship: unet7, "
+         "resnet18dilated-256, hidsep/sig, binary masks, dft fft), TF32 off",
+         **SERVE, clients=SERVE_CLIENTS, requests=SERVE_REQUESTS,
+         ao_requests=SERVE_REQUESTS // 2, frames="uint8 over TCP, f32 wire",
+         wall_s=wall, requests_per_s=SERVE_REQUESTS / wall,
+         dispatch_p50_ms=snap["p50_ms"], dispatch_p95_ms=snap["p95_ms"],
+         request_p50_ms=pct(lat, 0.5), request_p95_ms=pct(lat, 0.95),
+         mean_batch=snap["mean_batch"], dispatches=snap["dispatches"],
+         peak_mem_gib=peak, launches=launches,
+         launches_per_dispatch={k: v / snap["dispatches"]
+                                for k, v in launches.items()},
+         padded_batch_max_abs_err=parity, int16_snr_db=snr)
+    return launches, snap["dispatches"]
+
+
+def run_separate_cli():
+    """``python -m avsep_tpu_torch.separate_cli`` on the two mini duet
+    clips with their frame directories: 4 finite wavs, one launch of each
+    kernel."""
+    from avsep_tpu_torch.data.audio_io import read_wav
+    out = os.path.join(OUT_DIR, "separate_cli")
+    argv = ["--inputs", *(os.path.join(DUET_DIR, f"d0{i}.wav")
+                          for i in range(2)),
+            "--frames", *(os.path.join(DUET_FRAMES, f"d0{i}.mp4")
+                          for i in range(2)), "--out_dir", out]
+    wall, _, launches = run_module("separate_cli",
+                                   "avsep_tpu_torch.separate_cli", argv)
+    expect_launches("separate_cli", launches, 1, 1)
+    L = HOP * (config.FLAGSHIP.WS - 1)
+    for i in range(2):
+        for n in (1, 2):
+            w, sr = read_wav(os.path.join(out, f"d0{i}_src{n}.wav"))
+            if w.shape != (L,) or not np.isfinite(w).all():
+                raise AssertionError(f"separate_cli: d0{i}_src{n}.wav is "
+                                     f"not {L} finite samples")
+    emit("separate_cli", argv=argv, wall_s=wall, wavs=4, launches=launches)
+    return launches, 1
+
+
+def write_manifests():
+    """build/chip_smoke/duet.csv (the two mini duet clips, 28 frames at
+    4 fps, 6.5 s) and solo.csv (two solo rows of data/mini/train.csv, a
+    cello and a flute)."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    duet = os.path.join(OUT_DIR, "duet.csv")
+    with open(duet, "w") as f:
+        for i in range(2):
+            f.write(",".join([os.path.join(DUET_DIR, f"d0{i}.wav"),
+                              os.path.join(DUET_FRAMES, f"d0{i}.mp4"),
+                              "28", "4.0", "6.5", "duet"]) + "\n")
+    with open(os.path.join(REPO_DIR, "data", "mini", "train.csv")) as f:
+        rows = [line for line in f if line.strip()]
+    solo = os.path.join(OUT_DIR, "solo.csv")
+    with open(solo, "w") as f:
+        f.write(rows[0] + rows[3])
+    return duet, solo
+
+
+def run_inference(duet, solo):
+    """``python -m avsep_tpu_torch.inference`` with the flags of
+    scripts/inference.sh in each of vis, share, sweep (both duet rows) and
+    synthesis (the solo manifest): one launch of each kernel per separate
+    call."""
+    launches, res = {}, {}
+    ckpt = os.path.join(OUT_DIR, "inference")
+    calls = {"vis": 1, "share": 1, "sweep": 2, "synthesis": 1}
+    for mode, n in calls.items():
+        argv = [f.replace("${MODE}", mode) for f in
+                opts_flags("inference.sh")] + [
+            "--list_val", solo if mode == "synthesis" else duet,
+            "--ckpt", ckpt]
+        wall, _, got = run_module(f"inference {mode}",
+                                  "avsep_tpu_torch.inference", argv)
+        expect_launches(f"inference {mode}", got, n, n)
+        cfg = parse_args(argv)
+        root = os.path.join(ckpt, cfg.id, "demo")
+        want = {"vis": "d00/pred1.wav", "share": "share_d00/predmask2.jpg",
+                "sweep": "duet_1/mix.jpg", "synthesis": "synthesis/gt2.wav"}
+        if not os.path.exists(os.path.join(root, want[mode])):
+            raise AssertionError(f"inference {mode}: {want[mode]} missing")
+        res[mode] = {"wall_s": wall, "separate_calls": n, "launches": got}
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    emit("inference", flags="scripts/inference.sh", manifests=[duet, solo],
+         modes=res, launches=launches)
+    return launches, sum(calls.values())
+
+
+def write_clip30():
+    """A synthetic 6.5 s clip at 30 fps: a seeded wav at 11025 Hz (two
+    tones and noise) and 195 seeded jpgs of 128x96."""
+    from PIL import Image
+
+    from avsep_tpu_torch.data.audio_io import write_wav
+    root = os.path.join(OUT_DIR, "clip30")
+    fdir = os.path.join(root, "frames")
+    os.makedirs(fdir, exist_ok=True)
+    rs = np.random.RandomState(SEED)
+    sr, dur = 11025, 6.5
+    t = np.arange(int(sr * dur)) / sr
+    wav = (0.3 * np.sin(2 * np.pi * 220 * t) + 0.2 * np.sin(2 * np.pi * 587 * t)
+           + 0.05 * rs.randn(len(t))).astype(np.float32)
+    write_wav(os.path.join(root, "clip.wav"), wav, sr)
+    n = int(dur * VIS_FPS)
+    for i in range(n):
+        Image.fromarray(rs.randint(0, 256, (96, 128, 3), np.uint8)).save(
+            os.path.join(fdir, "{:06d}.jpg".format(i)))
+    return [os.path.join(root, "clip.wav"), fdir, str(n), str(VIS_FPS),
+            str(dur)]
+
+
+def run_vis_t180(dev):
+    """``inference.vis_video`` on a 30 fps window (T = 180 display frames,
+    one separate() call of 180 clips) with the flags of
+    scripts/inference.sh: its wall, peak memory and launches."""
+    from avsep_tpu_torch import inference
+    row = write_clip30()
+    cfg = parse_args([f.replace("${MODE}", "vis") for f in
+                      opts_flags("inference.sh")])
+    nets = train.init_state(cfg, engine.build_nets(cfg),
+                            torch.Generator().manual_seed(cfg.seed)).nets
+    T = int(round(VIS_FPS * inference.AUD_SEC))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    inference.vis_video(cfg, nets, row, os.path.join(OUT_DIR, "vis180"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect_launches("vis_t180", launches, 1, 1)
+    emit("vis_t180", frames=T, fps=VIS_FPS, separate_calls=1, wall_s=wall,
+         peak_mem_gib=peak, launches=launches)
+    return launches, 1
+
+
+def sop_config():
+    """scripts/train_SoPpp.sh on one card: its flags with ``--num_gpus 1``
+    (one B = 16 shard of the script's two)."""
+    return parse_args(opts_flags("train_SoPpp.sh") + ["--num_gpus", "1"])
+
+
+def run_sop_train(dev, gen):
+    """The recipe of scripts/train_SoPpp.sh at full width (unet7 basis with
+    32 channels, resnet18dilated-32, Base / cos, B = 16, 65535 samples),
+    float32 with TF32 off: SOP_WARMUP steps of each kind, then SOP_STEPS
+    timed steps of each, interleaved (host clock around each step,
+    synchronized); frame_window twice per step, finite losses, AO steps
+    leave the frame net and the frame group's momentum bit for bit."""
+    from avsep_tpu_torch import sop_main
+    cfg = sop_config()
+    if cfg.batch_size != B:
+        raise AssertionError(f"sop_train: batch {cfg.batch_size} != {B}")
+    state = sop_main.init_sop_state(cfg, sop_main.build_sop_nets(cfg),
+                                    torch.Generator().manual_seed(SEED))
+    steps = {k: sop_main.make_sop_train_step(cfg, state.nets, *k)
+             for k in SOP_KINDS}
+    batches = iter(train_batches(gen, dev,
+                                 len(SOP_KINDS) * (SOP_WARMUP + SOP_STEPS), B))
+    for _ in range(SOP_WARMUP):
+        for k in SOP_KINDS:
+            state, _ = steps[k](state, next(batches))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times = {k: [] for k in SOP_KINDS}
+    losses, per_step, frozen = [], [], []
+    for _ in range(SOP_STEPS):
+        for k in SOP_KINDS:
+            av = k[0]
+            before = None if av else (
+                {n: v.clone() for n, v in
+                 state.nets.frame.state_dict().items()},
+                {n: v.clone() for n, v in
+                 state.opt_state["frame"].momentum.items()})
+            n0 = kernels.frame_window.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = steps[k](state, next(batches))
+            torch.cuda.synchronize()
+            times[k].append(1e3 * (time.perf_counter() - t0))
+            per_step.append(kernels.frame_window.launches - n0)
+            losses += [float(m["err"]), float(m["match_loss"])]
+            if before is not None:
+                sd, mom = (state.nets.frame.state_dict(),
+                           state.opt_state["frame"].momentum)
+                frozen.append(all(torch.equal(v, sd[n])
+                                  for n, v in before[0].items())
+                              and all(torch.equal(v, mom[n])
+                                      for n, v in before[1].items()))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_steps = len(SOP_KINDS) * SOP_STEPS
+    if per_step != [2] * n_steps or launches["overlap_add_normalize"]:
+        raise AssertionError(f"sop_train: frame_window launches per step "
+                             f"{per_step} (expected 2 each), "
+                             f"overlap_add_normalize {launches}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"sop_train: non-finite loss {losses}")
+    if not frozen or not all(frozen):
+        raise AssertionError(f"sop_train: an AO step moved the frame net or "
+                             f"the frame group: {frozen}")
+    name = {(False, 1): "ao", (True, 1): "av_stage1", (True, 2): "av_stage2",
+            (True, 3): "av_stage3"}
+    emit("sop_train", config="scripts/train_SoPpp.sh on one card (unet7 "
+         "basis-32, resnet18dilated-32, Base/cos, InnerProd, bce, binary "
+         "weighted masks, float32, TF32 off, dft fft)", batch=B,
+         steps=n_steps,
+         ms_per_step={name[k]: float(np.median(v)) for k, v in times.items()},
+         step_ms={name[k]: v for k, v in times.items()},
+         samples_per_s=B * n_steps / (sum(map(sum, times.values())) / 1e3),
+         peak_mem_gib=peak, frame_window_launches_per_step=per_step,
+         launches=launches, losses=losses,
+         ao_steps_left_frame_unchanged=frozen)
+    return launches, n_steps
+
+
+def sop_card_vs_cpu(dev, gen):
+    """One step of each kind (AV stage 1, AO, AV stages 2 and 3) at a small
+    size from the same weights and batches on the card and on the CPU."""
+    from avsep_tpu_torch import sop_main
+    cfg = sop_config().replace(**SOP_SMALL)
+    kinds = ((True, 1), (False, 1), (True, 2), (True, 3))
+    batches = train_batches(gen, torch.device("cpu"), len(kinds), 2,
+                            aud_len=cfg.audLen, img=cfg.imgSize)
+    states, metrics, weights = {}, {}, None
+    for d in ("cpu", "cuda"):
+        st = sop_main.init_sop_state(
+            cfg, sop_main.build_sop_nets(cfg, device=d),
+            torch.Generator().manual_seed(SEED), device=d)
+        if weights is None:
+            spread_weights(st.nets, gen)
+            weights = [{k: v.clone() for k, v in net.state_dict().items()}
+                       for net in st.nets]
+        for net, sd in zip(st.nets, weights):
+            net.load_state_dict(sd)
+        p0 = {n: p.detach().cpu().clone()
+              for n, p in train.named_parameters(st.nets)}
+        ms = []
+        for b, k in zip(batches, kinds):
+            st, m = sop_main.make_sop_train_step(cfg, st.nets, *k,
+                                                 device=d)(st, b)
+            ms.append(float(m["err"]))
+        states[d], metrics[d] = st, ms
+    res = compare_states(states, metrics, p0)
+    emit("sop_card_vs_cpu", batch=2, dft=cfg.dft, binary_mask=0,
+         steps=["AV stage 1", "AO", "AV stage 2", "AV stage 3"],
+         tolerance=SOP_TOL, losses_cuda=metrics["cuda"],
+         losses_cpu=metrics["cpu"], **res)
+    check_tol("sop card vs CPU", res, SOP_TOL)
+
+
+def sop_cli():
+    """``python -m avsep_tpu_torch.sop_main --mode train`` with the flags of
+    scripts/train_SoPpp.sh on data/mini/train.csv: iterations 1 to 3 (AV
+    from the start: ``--num_fsteps 0``), an eval and a checkpoint at 3,
+    ``--num_vis 0``; exit 0 with "Training Done!", one finite results.csv
+    row per clip and branch."""
+    manifest = os.path.join("data", "mini", "train.csv")
+    argv = opts_flags("train_SoPpp.sh") + [
+        "--mode", "train", "--av_list_train", manifest, "--ao_list_train",
+        manifest, "--list_val", manifest, "--num_iters", "4",
+        "--eval_iter", "3", "--disp_iter", "1", "--num_fsteps", "0",
+        "--num_vis", "0", "--ckpt", os.path.join(OUT_DIR, "sop_cli")]
+    wall, out, launches = run_module("sop_cli", "avsep_tpu_torch.sop_main",
+                                     argv, timeout=900)
+    if "Training Done!" not in out:
+        raise AssertionError(f"sop_cli: no 'Training Done!':\n{out[-3000:]}")
+    cfg = parse_args(argv)
+    with open(os.path.join(REPO_DIR, manifest)) as f:
+        n = cfg.val_repeat * sum(1 for line in f if line.count(",") >= 1)
+    eval_steps = 2 * -(-n // cfg.batch_size)
+    expect_launches("sop_cli", launches, 2 * 3 + 3 * eval_steps, eval_steps)
+    run = os.path.join(cfg.ckpt, cfg.id)
+    for branch in ("sop_av", "sop_ao"):
+        rows = read_results(run, branch)
+        vals = [float(r[k]) for r in rows for k in ("sdr", "sir", "si-snr")]
+        if len(rows) != n or not np.isfinite(vals).all():
+            raise AssertionError(f"sop_cli {branch}: {len(rows)} rows "
+                                 f"(expected {n}) or non-finite metrics")
+    emit("sop_cli", argv=argv, wall_s=wall, batch=cfg.batch_size,
+         train_steps=3, eval_steps=eval_steps, clips=n, launches=launches,
+         eval=[line for line in out.splitlines()
+               if line.startswith("[SoP++ Eval]")])
+    return launches, 3 + eval_steps
+
+
+def run_pixelwise(duet):
+    """``python -m avsep_tpu_torch.inference`` with the flags of
+    scripts/vis_sound_map.sh on the mini duet manifest: one frame_window
+    launch, no iSTFT, a finite [14, 14, 256, 256] mask map (224x224 frames,
+    65535 samples)."""
+    argv = opts_flags("vis_sound_map.sh") + [
+        "--list_val", duet, "--ckpt", os.path.join(OUT_DIR, "pixelwise")]
+    wall, _, launches = run_module("pixelwise", "avsep_tpu_torch.inference",
+                                   argv)
+    expect_launches("pixelwise", launches, 1, 0)
+    cfg = parse_args(argv)
+    masks = np.load(os.path.join(cfg.ckpt, cfg.id, "demo", "pixelwise",
+                                 "pixel_masks.npy"))
+    # the dilated ResNet's stride 16; the warp's 256 bins; the STFT frames
+    side = cfg.imgSize // 16
+    if masks.shape != (side, side, 256, cfg.WS) or \
+            not np.isfinite(masks).all():
+        raise AssertionError(f"pixelwise: masks {masks.shape}, finite "
+                             f"{np.isfinite(masks).all()}")
+    emit("pixelwise", flags="scripts/vis_sound_map.sh", wall_s=wall,
+         masks_shape=list(masks.shape), launches=launches)
+    return launches, 1
 
 
 def main() -> int:
@@ -1014,21 +1584,38 @@ def main() -> int:
     sep_launches, nets = run_flagship(dev, gen)
     card_vs_cpu(dev, gen, nets)
     del nets
+    # each main path's launches, counted from 0 just before its run, and its
+    # calls: separate() calls, train steps, eval steps, serve dispatches,
+    # CLI runs, the demos' separate() calls, SoP++ steps (sop_cli: train
+    # steps and eval steps)
     launches = {"separate": sep_launches, "train": run_train(dev, gen)}
+    calls = {"separate": REQUESTS, "train": TRAIN_STEPS,
+             "eval": 2 * EVAL_BATCHES}
     train_card_vs_cpu(dev, gen)
     launches["eval"] = run_eval(dev, gen)
     eval_card_vs_cpu(dev, gen)
     cli_eval()
+    launches["serve"], calls["serve"] = run_serve(dev)
+    launches["separate_cli"], calls["separate_cli"] = run_separate_cli()
+    duet, solo = write_manifests()
+    launches["inference"], calls["inference"] = run_inference(duet, solo)
+    launches["vis_t180"], calls["vis_t180"] = run_vis_t180(dev)
+    launches["sop_train"], calls["sop_train"] = run_sop_train(dev, gen)
+    sop_card_vs_cpu(dev, gen)
+    launches["sop_cli"], calls["sop_cli"] = sop_cli()
+    launches["pixelwise"], calls["pixelwise"] = run_pixelwise(duet)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # launches: the sum over the main paths' runs (16 separate calls, 8
-    # train steps, 2 x EVAL_BATCHES eval steps), each counted from 0 just
-    # before it; by path beside
+    # launches: the sum over the main paths' runs; by path and per call
+    # beside
     table = [{**{k: (sum(p[r["name"]] for p in launches.values())
                      if k == "launches" else r[k]) for k in keys},
               "launches_by_path": {path: p[r["name"]]
                                    for path, p in launches.items()},
+              "calls_by_path": calls,
+              "launches_per_call": {path: p[r["name"]] / calls[path]
+                                    for path, p in launches.items()},
               "launches_per_train_step": launches["train"][r["name"]]
               / TRAIN_STEPS,
               "launches_per_eval_step": launches["eval"][r["name"]]

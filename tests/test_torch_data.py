@@ -165,7 +165,7 @@ def test_data_modules_import_without_torch():
             "avsep_tpu_torch.data.wire", "avsep_tpu_torch.main",
             "avsep_tpu_torch.utils.meters",
             "avsep_tpu_torch.utils.media", "avsep_tpu_torch.utils.viz",
-            "avsep_tpu_torch.check_exp"]
+            "avsep_tpu_torch.check_exp", "avsep_tpu_torch.sop_main"]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _PROBE, *mods], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
