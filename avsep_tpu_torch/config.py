@@ -4,9 +4,11 @@ The same flag names and defaults as the reference's ``arguments.py``
 (reference ``arguments.py:6-169``), as a frozen dataclass.  This is the
 port's own copy of ``avsep_tpu/config.py``: the port imports nothing of the
 JAX package.  It leaves out the fields of features the port lacks (the
-compute dtype, the Pallas switch, the device mesh, multi-host bring-up): on
-a CUDA tensor the port always runs its kernels, on a CPU tensor their plain
-versions, in float32 on one device.
+Pallas switch, the device mesh, multi-host bring-up): on a CUDA tensor the
+port always runs its kernels, on a CPU tensor their plain versions, on one
+device.  ``dtype`` is the nets' compute dtype, ``float32`` or ``bfloat16``
+(Flax's ``dtype``: parameters, running statistics and momentum stay
+float32).
 
 :func:`parse_args` accepts every flag string of the JAX package, so the
 repository's ``scripts/*.sh`` option strings parse unchanged.  A flag of a
@@ -126,8 +128,12 @@ class Config:
     # 1.0 is the reference's behaviour
     att_temp: float = 1.0
     demo_mode: str = "vis"
-    # rematerialize the nets' forwards in the backward pass; not ported yet,
-    # True raises in the train forwards (engine.REMAT_ITEM)
+    # the nets' compute dtype (DTYPES): "float32", or "bfloat16" for the
+    # convolutions and BatchNorm outputs with float32 parameters, statistics,
+    # fusion, STFT and losses (engine.build_nets)
+    dtype: str = "float32"
+    # rematerialize the frame and sound nets' forwards in the backward pass
+    # of a train step (torch.utils.checkpoint; engine.py)
     remat: bool = False
     # host->device audio encoding: "f32" (bit-exact) or "int16" (+ one gain
     # per source, about half the audio bytes; data/wire.py)
@@ -173,8 +179,9 @@ FLAGSHIP = Config(arch_sound="unet7", num_channels=2, vis_channels=256,
                   img_activation="relu", output_activation="sigmoid",
                   binary_mask=1, log_freq=1, one_frame=True)
 
+DTYPES = ("float32", "bfloat16")
+
 # ROADMAP.md, where each feature the port lacks waits
-DTYPE_ITEM = "ROADMAP.md Queue 2, item 2 (a bf16 or TF32 mode)"
 MESH_ITEM = "ROADMAP.md Queue 1, 'parallel/' (torch.distributed DDP)"
 FRAME_DECODE_ITEM = "ROADMAP.md Queue 1, 'data/native.py' (C++ decode)"
 KERNEL_SWITCH_ITEM = ("ROADMAP.md, 'Flags that raise' (the port runs its "
@@ -183,7 +190,6 @@ KERNEL_SWITCH_ITEM = ("ROADMAP.md, 'Flags that raise' (the port runs its "
 # flags of the JAX package that the port's Config has no field for: their
 # default (the only value the port accepts) and the ROADMAP.md item
 UNPORTED_FLAGS = {
-    "dtype": ("float32", DTYPE_ITEM),
     "use_pallas": (False, KERNEL_SWITCH_ITEM),
     "data_axis": ("data", MESH_ITEM),
     "mesh_shape": ((), MESH_ITEM),
@@ -252,6 +258,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> Config:
                 f"--{name} {value!r} is not ported (only {default!r}); see "
                 f"{item}")
     check_frame_decode(kw["frame_decode"])
+    if kw["dtype"] not in DTYPES:
+        raise ValueError(f"--dtype {kw['dtype']!r}: one of {DTYPES}")
     for f in dataclasses.fields(Config):
         if isinstance(kw[f.name], list):
             kw[f.name] = tuple(kw[f.name])

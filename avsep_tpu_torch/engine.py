@@ -28,6 +28,16 @@ previous call's statistics, and the sound net's second pass from the
 first's.  The audio-only slot swap takes injected uniforms or a
 ``torch.Generator``.
 
+``cfg.dtype`` is the nets' compute dtype (:func:`build_nets`): under
+``bfloat16`` the convolutions and the BatchNorm outputs are bfloat16,
+while the parameters, the running statistics, the fusion, the STFT, the
+masks and the losses stay float32 (``activate(upcast=True)``).
+``cfg.remat`` rematerializes the frame and sound nets' forwards of a train
+step in the backward pass (``torch.utils.checkpoint``), as the JAX package
+wraps them in ``jax.checkpoint``: the recompute leaves the BatchNorm running
+statistics alone, and an audio-only slot swap is drawn before it, so the
+losses, gradients and statistics are the plain path's.
+
 The entry points (:func:`build_nets`, :func:`init_params`, :func:`separate`
 and the forwards through the nets they are given) run on ``cuda`` unless
 the caller passes ``device="cpu"``; without a GPU they raise rather than
@@ -36,22 +46,28 @@ fall back to the CPU.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from avsep_tpu_torch.config import Config
 from avsep_tpu_torch.data.wire import encode_audio_wire
 from avsep_tpu_torch.models import criterion as crit
 from avsep_tpu_torch.models.builder import ModelBuilder, activate
+from avsep_tpu_torch.models.fusion import swap_uniforms as draw_swap
+from avsep_tpu_torch.models.layers import running_stats_frozen
 from avsep_tpu_torch.ops.prepare import PreparedBatch, prepare
 from avsep_tpu_torch.ops.stft import istft, stft_magphase
 from avsep_tpu_torch.ops.warp import unwarp_mask
 
 # ROADMAP.md, "Queue 1": what the port leaves for later slices
 MOTION_ITEM = "ROADMAP.md Queue 1, 'models/motion.py'"
-REMAT_ITEM = "ROADMAP.md Queue 1, 'remat'"
+
+# cfg.dtype -> the nets' compute dtype
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class Nets(NamedTuple):
@@ -59,6 +75,16 @@ class Nets(NamedTuple):
     (net_sound, net_frame), main.py:608-625)."""
     sound: Any
     frame: Any
+
+
+def full_float32() -> None:
+    """Turn TF32 off for cuDNN convolutions and cuBLAS matmuls, so that
+    float32 computes in float32 (torch lets cuDNN use TF32 by default).
+    The command lines call it in their ``__main__`` blocks, under either
+    ``--dtype``: the float32 islands of a bfloat16 run are float32 too.
+    Library code never sets these flags."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def resolve_device(device=None) -> torch.device:
@@ -87,20 +113,22 @@ def nets_device(nets: Nets, device=None) -> torch.device:
 
 def build_nets(cfg: Config, device=None) -> Nets:
     """The sound U-Net and the frame encoder of ``cfg`` on ``device``, in
-    eval mode (weights as PyTorch initializes them; see
-    :func:`init_params` for the reference's initializers)."""
+    eval mode, computing in ``cfg.dtype`` with float32 parameters (weights
+    as PyTorch initializes them; see :func:`init_params` for the
+    reference's initializers)."""
     dev = resolve_device(device)
     if cfg.load_clips or cfg.fusion_type == "CoLoc_ClipAtt":
         raise NotImplementedError(
             "the motion branch (--load_clips, fusion_type CoLoc_ClipAtt) is "
             f"not ported yet ({MOTION_ITEM})")
+    dtype = COMPUTE_DTYPES[cfg.dtype]
     sound = ModelBuilder.build_sound(
         arch=cfg.arch_sound, fc_dim=cfg.num_channels,
         fusion_type=cfg.fusion_type, att_type=cfg.att_type,
-        num_sources=cfg.num_mix, att_temp=cfg.att_temp)
+        num_sources=cfg.num_mix, att_temp=cfg.att_temp, dtype=dtype)
     frame = ModelBuilder.build_frame(
         arch=cfg.arch_frame, fc_dim=cfg.vis_channels,
-        pool_type=cfg.img_pool)
+        pool_type=cfg.img_pool, dtype=dtype)
     return Nets(sound.to(dev).eval(), frame.to(dev).eval())
 
 
@@ -141,21 +169,42 @@ def normalize_frames(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _frame_features(nets: Nets, frames_n: torch.Tensor,
-                    cfg: Config) -> torch.Tensor:
+def _remat_contexts():
+    """``torch.utils.checkpoint``'s ``context_fn``: nothing around the
+    forward, the BatchNorm running statistics frozen around the
+    recompute."""
+    return contextlib.nullcontext(), running_stats_frozen()
+
+
+def _call(net, remat: bool, *args, **kw):
+    """``net(*args, **kw)``, rematerialized in the backward pass if
+    ``remat`` (the JAX package's ``_maybe_remat``)."""
+    if not remat:
+        return net(*args, **kw)
+    return torch.utils.checkpoint.checkpoint(
+        net, *args, use_reentrant=False, context_fn=_remat_contexts, **kw)
+
+
+def _frame_features(nets: Nets, frames_n: torch.Tensor, cfg: Config,
+                    remat: bool = False) -> torch.Tensor:
     """One source's frames -> activated feature map (reference
     main.py:120-122).  ``pool=cfg.not_pool_vis`` as in the JAX package:
     the flag's torch-argparse inversion means False returns the map."""
     frames_n = normalize_frames(frames_n)
-    feats = nets.frame(frames_n, pool=cfg.not_pool_vis)
+    feats = _call(nets.frame, remat, frames_n, pool=cfg.not_pool_vis)
     return activate(feats, cfg.img_activation, upcast=False)
 
 
 def _sound_forward(nets: Nets, log_mag: torch.Tensor,
                    v: Optional[torch.Tensor], swap_uniforms=None,
-                   generator=None):
+                   generator=None, remat: bool = False):
     x = log_mag[..., None]  # [B, F, T] -> NHWC
-    return nets.sound(x, v, swap_uniforms=swap_uniforms, generator=generator)
+    if remat and v is None:
+        # preserve_rng_state does not cover an explicit generator: draw the
+        # slot swap once, before the region, for the recompute to reuse
+        swap_uniforms = draw_swap(x.shape[0], swap_uniforms, generator)
+    return _call(nets.sound, remat, x, v, swap_uniforms=swap_uniforms,
+                 generator=generator)
 
 
 def _to_device(x, dev: torch.device) -> torch.Tensor:
@@ -243,14 +292,8 @@ def _prepare(batch, cfg: Config) -> PreparedBatch:
                    binary_mask=bool(cfg.binary_mask))
 
 
-def _start(nets: Nets, batch, cfg: Config, train: bool) -> Dict:
-    """Checks, sets the nets' mode and moves the batch to their device."""
-    if train and cfg.remat:
-        # torch.utils.checkpoint re-runs the forward in the backward pass,
-        # which would update every train-mode BatchNorm's running
-        # statistics twice; jax.checkpoint does not
-        raise NotImplementedError(f"cfg.remat is not ported yet "
-                                  f"({REMAT_ITEM})")
+def _start(nets: Nets, batch, train: bool) -> Dict:
+    """Sets the nets' mode and moves the batch to their device."""
     _set_mode(nets, train)
     dev = next(nets.sound.parameters()).device
     return {k: _to_device(v, dev) for k, v in batch.items()}
@@ -264,10 +307,11 @@ def forward_ao(nets: Nets, batch, cfg: Config, *, train: bool,
     """Audio-only PIT forward (reference main.py:97-111).  Returns ``(err,
     outputs)``; ``swap_uniforms [B]`` or ``generator`` draw the fusion's
     slot swap."""
-    batch = _start(nets, batch, cfg, train)
+    batch = _start(nets, batch, train)
     prep = _prepare(batch, cfg)
     pred, _ = _sound_forward(nets, prep.log_mag_mix, None,
-                             swap_uniforms=swap_uniforms, generator=generator)
+                             swap_uniforms=swap_uniforms, generator=generator,
+                             remat=train and cfg.remat)
     pred_masks = activate(pred, cfg.output_activation)  # [B, H, W, C]
 
     gt = prep.gt_masks.movedim(1, -1)                   # [B, H, W, N]
@@ -290,15 +334,17 @@ def forward_av(nets: Nets, batch, cfg: Config, *, train: bool,
     forward; ``err = (err1 + err0) / 2 + match_weight * (match1 +
     match0)``.  The slot-swap arguments are unused (no audio-only fusion
     here) and accepted for the common signature."""
-    batch = _start(nets, batch, cfg, train)
+    batch = _start(nets, batch, train)
     prep = _prepare(batch, cfg)
     N = cfg.num_mix
     frames = batch["frames"]
-    feats = [_frame_features(nets, frames[:, n], cfg) for n in range(N)]
+    remat = train and cfg.remat
+    feats = [_frame_features(nets, frames[:, n], cfg, remat)
+             for n in range(N)]
 
     def one_pass(vis_list, gt):
         v = torch.stack(vis_list)                       # [C, B, h, w, Dv]
-        pred, meta = _sound_forward(nets, prep.log_mag_mix, v)
+        pred, meta = _sound_forward(nets, prep.log_mag_mix, v, remat=remat)
         preds = [activate(pred[..., n], cfg.output_activation)
                  for n in range(N)]
         err_ps = crit.multi_source_loss(torch.stack(preds), gt.movedim(1, 0),
@@ -331,14 +377,15 @@ def forward_avmiximg(nets: Nets, batch, cfg: Config, *, train: bool,
     if N != 2:
         raise ValueError(
             f"fusion_type=MixVis supports num_mix=2 only (got {N})")
-    batch = _start(nets, batch, cfg, train)
+    batch = _start(nets, batch, train)
     prep = _prepare(batch, cfg)
     frames = batch["frames"]
     mix_frames = torch.cat([frames[:, n] for n in range(N)], dim=-2)
-    feat = _frame_features(nets, mix_frames, cfg)
+    remat = train and cfg.remat
+    feat = _frame_features(nets, mix_frames, cfg, remat)
 
     pred, meta = _sound_forward(nets, prep.log_mag_mix,
-                                torch.stack([feat]))
+                                torch.stack([feat]), remat=remat)
     pred_masks = activate(pred, cfg.output_activation)  # [B, H, W, S]
     gt = prep.gt_masks.movedim(1, -1)
     w = torch.stack([prep.weights] * N, dim=-1)

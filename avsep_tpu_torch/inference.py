@@ -352,4 +352,6 @@ def main(cfg: Config, device=None) -> None:
 
 
 if __name__ == "__main__":
+    from avsep_tpu_torch.engine import full_float32
+    full_float32()
     main(parse_args())

@@ -231,6 +231,8 @@ def _train_loop(cfg, state, history, best_holder, start_i, steps, use_vis_fn,
 
 
 if __name__ == "__main__":
+    from avsep_tpu_torch.engine import full_float32
+    full_float32()
     args = parse_args()
     np.random.seed(args.seed)
     main(args)

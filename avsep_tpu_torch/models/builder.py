@@ -1,7 +1,9 @@
 """Model factory and activation dispatcher.
 
 Port of ``avsep_tpu/models/builder.py`` (reference ``models/__init__.py``,
-``ModelBuilder`` / ``activate``) for the nets of the separation path.
+``ModelBuilder`` / ``activate``).  Each ``build_*`` takes the compute
+``dtype`` (``torch.float32`` or ``torch.bfloat16``), as the JAX package's
+does; the parameters are float32 either way.
 """
 
 from __future__ import annotations
@@ -16,10 +18,15 @@ def activate(x: torch.Tensor, activation: str,
              upcast: bool = True) -> torch.Tensor:
     """Activation dispatcher (reference models/__init__.py:16-28).
 
-    ``upcast=True`` casts to float32 first, the mixed-precision boundary of
-    the JAX package at every output-side call site; feature-path call
-    sites pass ``upcast=False``.  The port runs in float32, where both are
-    the same.
+    ``upcast=True`` (every output-side call site: masks, losses, metrics)
+    casts to float32 first, the JAX package's mixed-precision boundary.
+    Under ``--dtype bfloat16`` a bfloat16 sigmoid saturates to exactly 1.0
+    at logits of about 6 (its resolution near 1 is 2^-8), which would turn
+    the BCE input clip at 1 - 1e-7 into a no-op and make the gradient of
+    log(1 - p) inf * 0 = NaN; in float32 the loss and its gradient stay
+    finite.  Feature-path call sites (the ReLU on the visual features, the
+    SoP++ basis) pass ``upcast=False``: those tensors feed straight back
+    into bfloat16 layers.  In float32 both are the same.
     """
     if upcast:
         x = x.float()
@@ -46,23 +53,26 @@ class ModelBuilder:
     @staticmethod
     def build_sound(arch: str = "unet5", fc_dim: int = 64,
                     fusion_type: str = "hidsep", att_type: str = "cos",
-                    num_sources: int = 2, att_temp: float = 1.0
-                    ) -> AudioUnet:
+                    num_sources: int = 2, att_temp: float = 1.0,
+                    dtype: torch.dtype = torch.float32) -> AudioUnet:
         if arch not in _UNET_DOWNS:
             raise ValueError("Architecture undefined!")
         return AudioUnet(fc_dim=fc_dim, num_downs=_UNET_DOWNS[arch],
                          fusion_type=fusion_type, att_type=att_type,
-                         num_sources=num_sources, att_temp=att_temp)
+                         num_sources=num_sources, att_temp=att_temp,
+                         dtype=dtype)
 
     @staticmethod
     def build_frame(arch: str = "resnet18dilated", fc_dim: int = 64,
-                    pool_type: str = "avgpool"):
+                    pool_type: str = "avgpool",
+                    dtype: torch.dtype = torch.float32):
         if arch == "resnet18fc":
             return FrameEncoder(fc_dim=fc_dim, pool_type=pool_type,
-                                dilate_scale=0)
+                                dilate_scale=0, dtype=dtype)
         if arch == "resnet18dilated":
             return FrameEncoder(fc_dim=fc_dim, pool_type=pool_type,
-                                dilate_scale=16)
+                                dilate_scale=16, dtype=dtype)
         if arch == "tinyconv":
-            return TinyConvEncoder(fc_dim=fc_dim, pool_type=pool_type)
+            return TinyConvEncoder(fc_dim=fc_dim, pool_type=pool_type,
+                                   dtype=dtype)
         raise ValueError("Architecture undefined!")

@@ -135,8 +135,10 @@ def _random_slot_swap(blocks: torch.Tensor, uniforms: torch.Tensor
     return torch.gather(blocks, 1, perm[:, :, None].expand(B, C, Dc))
 
 
-def _swap_uniforms(B: int, uniforms: Optional[torch.Tensor],
-                   generator: Optional[torch.Generator]) -> torch.Tensor:
+def swap_uniforms(B: int, uniforms: Optional[torch.Tensor],
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The audio-only slot swap's ``[B]`` uniforms: ``uniforms`` as given,
+    else a draw from ``generator``."""
     if uniforms is not None:
         return torch.as_tensor(uniforms, dtype=torch.float32)
     if generator is None:
@@ -151,7 +153,7 @@ def _ao_forward(x: torch.Tensor, C: int = 2, *,
     """Audio-only path: shuffle the per-source chunks and broadcast them as
     the guidance (reference fusion_net.py:93-104)."""
     B, h, w, D = x.shape
-    u = _swap_uniforms(B, uniforms, generator)
+    u = swap_uniforms(B, uniforms, generator)
     blocks = _random_slot_swap(_pool_chunks(x, C), u)
     guidance = _broadcast_guidance(blocks, h, w)
     return FusionOut(torch.cat([guidance, x], dim=-1), None, None)

@@ -14,11 +14,20 @@ CPU, so the same seed gives the same weights on every device.
 
 :class:`BatchNorm` is the one BatchNorm of the port's nets (U-Net, ResNet,
 tiny encoder): its train mode updates the running statistics as Flax does.
+
+Compute dtype (Flax's ``dtype``).  :class:`Conv2d` and :class:`BatchNorm`
+take ``compute_dtype``; their parameters and buffers stay float32.  Under
+bfloat16 a conv casts its input, weight and bias to bfloat16 inside
+``forward`` (the gradients reach the float32 parameters through the cast),
+and a BatchNorm takes its batch statistics and normalizes in float32
+(Flax's ``force_float32_reductions``), then returns bfloat16.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn as nn
@@ -81,13 +90,35 @@ def reset_batchnorm_(bn: nn.BatchNorm2d, generator=None) -> None:
 # ------------------------------------------------------------------- layers
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in ``compute_dtype``: the input, the
+    weight and the bias are cast to it inside :meth:`forward` (Flax
+    ``nn.Conv``'s ``dtype``); the parameters stay float32.  Below float32
+    the bias is added to the rounded conv output, as Flax adds it."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32,
+                 **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.compute_dtype
+        if d == torch.float32:
+            return super().forward(x)
+        y = self._conv_forward(x.to(d), self.weight.to(d), None)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(d)[:, None, None]
+
+
 class ConvDown(nn.Module):
     """4x4 stride-2 pad-1 conv, bias-free (reference audio_net.py:72-74)."""
 
-    def __init__(self, in_features: int, features: int):
+    def __init__(self, in_features: int, features: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(in_features, features, 4, stride=2, padding=1,
-                              bias=False)
+        self.conv = Conv2d(in_features, features, 4, stride=2, padding=1,
+                           bias=False, compute_dtype=dtype)
 
     def reset_parameters_(self, generator: torch.Generator) -> None:
         normal_init_(self.conv.weight, 0.001, generator)
@@ -100,10 +131,10 @@ class ConvUp(nn.Module):
     """3x3 pad-1 conv (reference audio_net.py:75-76,85-87)."""
 
     def __init__(self, in_features: int, features: int,
-                 use_bias: bool = False):
+                 use_bias: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(in_features, features, 3, padding=1,
-                              bias=use_bias)
+        self.conv = Conv2d(in_features, features, 3, padding=1,
+                           bias=use_bias, compute_dtype=dtype)
 
     def reset_parameters_(self, generator: torch.Generator) -> None:
         normal_init_(self.conv.weight, 0.001, generator)
@@ -113,6 +144,23 @@ class ConvUp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)
+
+
+_FROZEN = threading.local()
+
+
+@contextlib.contextmanager
+def running_stats_frozen():
+    """Inside it, a train-mode :class:`BatchNorm` of this thread normalizes
+    with its batch statistics as always but leaves its running statistics
+    and ``num_batches_tracked`` alone: the recompute of a rematerialized
+    forward (``engine.py``) must not update them a second time."""
+    before = getattr(_FROZEN, "on", False)
+    _FROZEN.on = True
+    try:
+        yield
+    finally:
+        _FROZEN.on = before
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -130,38 +178,47 @@ class BatchNorm(nn.BatchNorm2d):
     The batch statistics come out of the normalizing call itself: it gets
     zeroed scratch buffers and momentum 1, so it writes the batch mean and
     the unbiased batch variance there, and the biased one is that times
-    ``(n - 1) / n``.
+    ``(n - 1) / n``.  The scratch buffers are float32 whatever the input's
+    dtype, as are the parameters and running buffers: on a bfloat16 input
+    the statistics and the normalization are computed in float32, and the
+    result is returned in ``compute_dtype``.
     """
 
     def __init__(self, features: int, momentum: float = 0.9,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__(features, eps=eps)
         self.flax_momentum = momentum
+        self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
-        batch = x.new_zeros(2, x.shape[1])
+                                self.weight, self.bias, False, 0.0, self.eps
+                                ).to(self.compute_dtype)
+        batch = torch.zeros(2, x.shape[1], dtype=torch.float32,
+                            device=x.device)
         y = F.batch_norm(x, batch[0], batch[1], self.weight, self.bias, True,
                          1.0, self.eps)
-        with torch.no_grad():
-            n = x.numel() // x.shape[1]
-            m = self.flax_momentum
-            self.running_mean.mul_(m).add_(batch[0], alpha=1.0 - m)
-            self.running_var.mul_(m).add_(batch[1],
-                                          alpha=(1.0 - m) * (n - 1) / n)
-            self.num_batches_tracked.add_(1)
-        return y
+        if not getattr(_FROZEN, "on", False):
+            with torch.no_grad():
+                n = x.numel() // x.shape[1]
+                m = self.flax_momentum
+                self.running_mean.mul_(m).add_(batch[0], alpha=1.0 - m)
+                self.running_var.mul_(m).add_(batch[1],
+                                              alpha=(1.0 - m) * (n - 1) / n)
+                self.num_batches_tracked.add_(1)
+        return y.to(self.compute_dtype)
 
 
 class TorchBatchNorm(nn.Module):
     """BatchNorm with torch's defaults (eps 1e-5, momentum 0.1, which is
     Flax's 0.9) under the JAX package's module name ``bn``."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.bn = BatchNorm(features, momentum=0.9, eps=1e-5)
+        self.bn = BatchNorm(features, momentum=0.9, eps=1e-5,
+                            compute_dtype=dtype)
 
     def reset_parameters_(self, generator: torch.Generator) -> None:
         reset_batchnorm_(self.bn, generator)
@@ -177,7 +234,12 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
 def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
     """NCHW bilinear 2x upsample, as torch ``Upsample(scale_factor=2,
     mode='bilinear', align_corners=True)`` (reference audio_net.py:68-69).
-    The same 2-tap sums as the JAX package's interpolation matrices."""
+    The same 2-tap sums as the JAX package's interpolation matrices.
+
+    On a bfloat16 input both passes accumulate in float32 and the result is
+    rounded to bfloat16 once; the JAX package rounds its H-pass
+    intermediate to bfloat16 too, so it rounds twice
+    (``tests/test_torch_bf16.py`` holds both)."""
     return F.interpolate(x, scale_factor=2, mode="bilinear",
                          align_corners=True)
 

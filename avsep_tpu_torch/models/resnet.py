@@ -17,7 +17,9 @@ projecting 512 -> ``fc_dim`` channels, with
 The convolutions run NCHW; the public interface keeps the JAX package's
 NHWC (frames ``[B, H, W, 3]`` or ``[B, T, H, W, 3]`` in, maps
 ``[B, h, w, fc_dim]`` or vectors ``[B, fc_dim]`` out).  Submodules carry the
-JAX package's names (``features.layer4_0.conv1``, ``fc``, ...).
+JAX package's names (``features.layer4_0.conv1``, ``fc``, ...).  ``dtype``
+is the compute dtype of every conv and BatchNorm (``models/layers.py``);
+the parameters stay float32.
 """
 
 from __future__ import annotations
@@ -27,11 +29,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from avsep_tpu_torch.models.layers import (
-    BatchNorm, he_normal_init_, reset_batchnorm_)
+    BatchNorm, Conv2d, he_normal_init_, reset_batchnorm_)
 
 
-def _bn(features: int) -> BatchNorm:
-    return BatchNorm(features, momentum=0.9, eps=1e-5)
+def _bn(features: int, dtype: torch.dtype) -> BatchNorm:
+    return BatchNorm(features, momentum=0.9, eps=1e-5, compute_dtype=dtype)
 
 
 class BasicBlock(nn.Module):
@@ -39,20 +41,23 @@ class BasicBlock(nn.Module):
     downsample."""
 
     def __init__(self, in_features: int, features: int, strides: int = 1,
-                 dilation: int = 1, first_dilation: int = 1):
+                 dilation: int = 1, first_dilation: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         d1, d2 = first_dilation, dilation
-        self.conv1 = nn.Conv2d(in_features, features, 3, stride=strides,
-                               padding=d1, dilation=d1, bias=False)
-        self.bn1 = _bn(features)
-        self.conv2 = nn.Conv2d(features, features, 3, padding=d2,
-                               dilation=d2, bias=False)
-        self.bn2 = _bn(features)
+        self.conv1 = Conv2d(in_features, features, 3, stride=strides,
+                            padding=d1, dilation=d1, bias=False,
+                            compute_dtype=dtype)
+        self.bn1 = _bn(features, dtype)
+        self.conv2 = Conv2d(features, features, 3, padding=d2, dilation=d2,
+                            bias=False, compute_dtype=dtype)
+        self.bn2 = _bn(features, dtype)
         self.has_downsample = strides != 1 or in_features != features
         if self.has_downsample:
-            self.downsample_conv = nn.Conv2d(in_features, features, 1,
-                                             stride=strides, bias=False)
-            self.downsample_bn = _bn(features)
+            self.downsample_conv = Conv2d(in_features, features, 1,
+                                          stride=strides, bias=False,
+                                          compute_dtype=dtype)
+            self.downsample_bn = _bn(features, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.relu(self.bn1(self.conv1(x)))
@@ -72,10 +77,12 @@ class ResNet18Features(nn.Module):
     ``dilate_scale=8`` also dilates layer3.
     """
 
-    def __init__(self, dilate_scale: int = 0):
+    def __init__(self, dilate_scale: int = 0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = _bn(64)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False,
+                            compute_dtype=dtype)
+        self.bn1 = _bn(64, dtype)
         # torch MaxPool2d pads with -inf, as the JAX package's max_pool
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
 
@@ -86,10 +93,10 @@ class ResNet18Features(nn.Module):
                 d_first = d_rest = 1
             self.add_module(f"{name}_0", BasicBlock(
                 in_features, features, strides=stride, dilation=d_rest,
-                first_dilation=d_first))
+                first_dilation=d_first, dtype=dtype))
             self.add_module(f"{name}_1", BasicBlock(
                 features, features, strides=1, dilation=d_rest,
-                first_dilation=d_rest))
+                first_dilation=d_rest, dtype=dtype))
 
         layer("layer1", 64, 64, 1)
         layer("layer2", 64, 128, 2)
@@ -115,11 +122,12 @@ class _FrameNet(nn.Module):
     """
 
     def __init__(self, features: nn.Module, trunk_dim: int, fc_dim: int,
-                 pool_type: str):
+                 pool_type: str, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.pool_type = pool_type
         self.features = features
-        self.fc = nn.Conv2d(trunk_dim, fc_dim, 3, padding=1, bias=True)
+        self.fc = Conv2d(trunk_dim, fc_dim, 3, padding=1, bias=True,
+                         compute_dtype=dtype)
 
     @torch.no_grad()
     def reset_parameters_(self, generator: torch.Generator) -> None:
@@ -162,9 +170,9 @@ class FrameEncoder(_FrameNet):
     """ResnetFC / ResnetDilated: the ResNet18 trunk + the 3x3 fc conv."""
 
     def __init__(self, fc_dim: int = 64, pool_type: str = "maxpool",
-                 dilate_scale: int = 16):
-        super().__init__(ResNet18Features(dilate_scale), 512, fc_dim,
-                         pool_type)
+                 dilate_scale: int = 16, dtype: torch.dtype = torch.float32):
+        super().__init__(ResNet18Features(dilate_scale, dtype), 512, fc_dim,
+                         pool_type, dtype)
 
 
 def _same_pad(size: int, kernel: int, stride: int):
@@ -181,13 +189,15 @@ class _TinyTrunk(nn.Module):
     (``Conv_0``, ``BatchNorm_0``, ...), so the JAX parameter paths are the
     ``state_dict`` keys.  The BNs keep Flax's default momentum, 0.99."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
         cin = 3
         for i, ch in enumerate((16, 32, 64)):
-            self.add_module(f"Conv_{i}", nn.Conv2d(cin, ch, 3, stride=2,
-                                                   padding=0, bias=True))
-            self.add_module(f"BatchNorm_{i}", BatchNorm(ch, momentum=0.99))
+            self.add_module(f"Conv_{i}", Conv2d(cin, ch, 3, stride=2,
+                                                padding=0, bias=True,
+                                                compute_dtype=dtype))
+            self.add_module(f"BatchNorm_{i}", BatchNorm(
+                ch, momentum=0.99, compute_dtype=dtype))
             cin = ch
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -204,5 +214,6 @@ class TinyConvEncoder(_FrameNet):
     ``avsep_tpu/models/resnet.py:159-216``, no reference equivalent): the
     FrameEncoder contract with an 8x-downsampling three-block trunk."""
 
-    def __init__(self, fc_dim: int = 64, pool_type: str = "maxpool"):
-        super().__init__(_TinyTrunk(), 64, fc_dim, pool_type)
+    def __init__(self, fc_dim: int = 64, pool_type: str = "maxpool",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(_TinyTrunk(dtype), 64, fc_dim, pool_type, dtype)

@@ -15,7 +15,9 @@ The down path applies LeakyReLU(0.2) before each conv after the first and
 BatchNorm after it (not on the innermost), and the input passes a learned
 BatchNorm2d(1) (``bn0``).  The convolutions run NCHW; the public interface
 keeps the JAX package's NHWC: ``x [B, H, W, 1]`` in, masks
-``[B, H, W, fc_dim]`` out.  The fusion runs in float32.
+``[B, H, W, fc_dim]`` out.  ``dtype`` is the compute dtype of the convs
+and BatchNorms; the fusion runs in float32 whatever it is, its inputs cast
+up and its output back down to ``dtype`` (``avsep_tpu/models/unet.py:93-98``).
 """
 
 from __future__ import annotations
@@ -51,8 +53,10 @@ class AudioUnet(nn.Module):
 
     def __init__(self, fc_dim: int = 64, num_downs: int = 5, ngf: int = 64,
                  fusion_type: str = "hidsep", att_type: str = "cos",
-                 att_temp: float = 1.0, num_sources: int = 2):
+                 att_temp: float = 1.0, num_sources: int = 2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.num_downs = num_downs
         self.att_type = att_type
         self.att_temp = att_temp
@@ -60,18 +64,18 @@ class AudioUnet(nn.Module):
         self.fuse = get_fusion(fusion_type)
         feats = _down_features(ngf, num_downs)
 
-        self.bn0 = TorchBatchNorm(1)
+        self.bn0 = TorchBatchNorm(1, dtype)
         for d in range(num_downs):
-            self.add_module(f"down{d}",
-                            ConvDown(1 if d == 0 else feats[d - 1], feats[d]))
+            self.add_module(f"down{d}", ConvDown(
+                1 if d == 0 else feats[d - 1], feats[d], dtype))
             if 0 < d < num_downs - 1:
-                self.add_module(f"down_bn{d}", TorchBatchNorm(feats[d]))
+                self.add_module(f"down_bn{d}", TorchBatchNorm(feats[d], dtype))
         for d in range(num_downs - 1, -1, -1):
             out = fc_dim if d == 0 else feats[d - 1]
             self.add_module(f"up{d}", ConvUp(2 * feats[d], out,
-                                             use_bias=(d == 0)))
+                                             use_bias=(d == 0), dtype=dtype))
             if d > 0:
-                self.add_module(f"up_bn{d}", TorchBatchNorm(out))
+                self.add_module(f"up_bn{d}", TorchBatchNorm(out, dtype))
 
     def reset_parameters_(self, generator: torch.Generator) -> None:
         """The reference initializers, drawn from ``generator`` in module
@@ -104,7 +108,7 @@ class AudioUnet(nn.Module):
             att_type=self.att_type, option=option,
             n_sources=self.num_sources, att_temp=self.att_temp,
             uniforms=swap_uniforms, generator=generator)
-        h = out.features.permute(0, 3, 1, 2)
+        h = out.features.to(self.dtype).permute(0, 3, 1, 2)
 
         # ---- decoder ----
         for d in range(nd - 1, -1, -1):

@@ -7,7 +7,7 @@ linear-frequency spectrograms onto a 256-bin log-frequency axis with
 way (reference ``main.py:217-220``).  The warp grid is separable, so the
 bilinear sampling factorises into ``out = Wy @ img @ Wx.T`` with dense
 interpolation matrices that bake in ``align_corners=False`` and zero
-padding.
+padding.  :func:`grid_sample` is the general, non-separable sampler.
 """
 
 from __future__ import annotations
@@ -92,3 +92,15 @@ def unwarp_mask(mask: torch.Tensor, HO: int = 512) -> torch.Tensor:
     """Un-warp a log-frequency mask back to ``HO`` linear-frequency bins
     (reference ``main.py:217-220``); the time width is kept."""
     return warp_spectrogram(mask, HO=HO, WO=mask.shape[-1], warp=False)
+
+
+def grid_sample(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """General bilinear ``F.grid_sample(x, grid, align_corners=False,
+    padding_mode='zeros')`` for NCHW ``x [B, C, H, W]`` and ``grid [B, HO,
+    WO, 2]`` holding normalized (x, y) coordinates; a sample point outside
+    ``[-1, 1]`` takes zeros for its taps that fall off the image (port of
+    ``avsep_tpu/ops/warp.py:111-142``, which gathers the four taps
+    itself).  Use :func:`warp_spectrogram` for the separable warp grids."""
+    return torch.nn.functional.grid_sample(
+        x, grid.to(x.dtype), mode="bilinear", padding_mode="zeros",
+        align_corners=False)

@@ -97,4 +97,6 @@ def main(argv=None, device=None) -> None:
 
 
 if __name__ == "__main__":
+    from avsep_tpu_torch.engine import full_float32
+    full_float32()
     main()

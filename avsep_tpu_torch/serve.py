@@ -477,4 +477,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from avsep_tpu_torch.engine import full_float32
+    full_float32()
     main()

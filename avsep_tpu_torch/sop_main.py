@@ -312,6 +312,8 @@ def main(cfg: Config, device=None) -> None:
 
 
 if __name__ == "__main__":
+    from avsep_tpu_torch.engine import full_float32
+    full_float32()
     args = parse_args()
     if args.fusion_type not in ("Base", "MatchAtt"):
         args = args.replace(fusion_type="Base")

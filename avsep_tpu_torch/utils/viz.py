@@ -3,7 +3,9 @@
 The port's own copy of ``plot_loss_metrics`` from ``avsep_tpu/utils/
 viz.py`` (reference ``viz.py:7-46``): loss.png / metrics_av.png /
 metrics_ao.png from the history dict.  matplotlib is imported by the
-function.  The JAX module's ``HTMLVisualizer`` has no caller there or here
+function; without it the plots are skipped with one line, as the media
+layer skips videos without ffmpeg, so a train loop's eval tick does not
+stop on a machine that lacks it.  The JAX module's ``HTMLVisualizer`` has no caller there or here
 and is not copied.
 """
 
@@ -13,7 +15,12 @@ import os
 
 
 def plot_loss_metrics(path: str, history: dict) -> None:
-    import matplotlib
+    try:
+        import matplotlib
+    except ImportError:
+        print("[viz] matplotlib not found; skipping the loss and metric "
+              "plots")
+        return
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 

@@ -38,6 +38,11 @@ script exits non-zero before printing any result.
 5. card_vs_cpu: the same path at B = 2 with binary_mask 0 and dft "fft" on
    the card and on the CPU with the same weights; masks and wavs must agree
    to 1e-4.  Then with binary_mask 1, the share of agreeing mask bins.
+   separate_bf16: the same flagship in bfloat16 (``--dtype bfloat16``)
+   from the separate phase's weights, on its inputs: clips/s, the share of
+   binary-mask bins that agree with the float32 calls and the largest
+   difference of the waveforms (recorded, not bounded), one launch of each
+   kernel per call.
 6. train: the recipe of scripts/train_MUSIC.sh on one card at full width
    and depth (unet7, resnet18dilated-256, hidsep/sig, bce on binary
    weighted masks, match_weight 0.1, B = 16, 65535 samples, frames
@@ -51,13 +56,21 @@ script exits non-zero before printing any result.
    must launch exactly twice per step (counters set to 0 just before the 8
    steps, read per step and just after), every loss must be finite and
    every AO step must leave the frame net (parameters and statistics) bit
-   for bit as it was.
+   for bit as it was; the parameters and momentum buffers stay float32
+   and move.
    train_profile: torch.profiler over one more AV step.
+   train_bf16, train_bf16_profile: the same in the script's own bfloat16
+   (``--dtype bfloat16 --dft matmul``), the float32 phase its A/B partner.
+   remat: one AV step at B = 16 with and without ``remat`` from the same
+   weights and batch: losses, momentum buffers and running statistics
+   within ``TRAIN_TOL`` (whether the buffers are equal bit for bit is
+   reported), then timed steps of each: ms per step and peak memory.
 7. train_card_vs_cpu: one AV and one AO step at a small size (unet5,
    resnet18dilated-256 on 64x64 frames, 16383 samples, B = 2, dft "fft",
    binary_mask 0) from the same weights and batches on the card and on
    the CPU: losses, parameters, momentum buffers and BatchNorm running
    statistics within ``TRAIN_TOL``, group counts equal.
+   bf16_card_vs_cpu: the same in bfloat16, within ``BF16_TOL``.
 8. eval: the recipe of scripts/eval_MUSIC.sh at full width (unet7,
    resnet18dilated-256, hidsep/sig, bce, binary weighted masks,
    log-frequency warp, one frame, dft "fft", float32 with TF32 off), B = 16,
@@ -95,9 +108,11 @@ script exits non-zero before printing any result.
 12. separate_cli, inference (vis, share, sweep, synthesis with the flags
    of scripts/inference.sh on manifests written from data/mini) and, at
    the end, pixelwise (scripts/vis_sound_map.sh): ``python -m`` runs in
-   child processes that report their kernels' launches (``run_module``);
-   exit 0, their files, one launch of each kernel per separate() call
-   (pixelwise: one frame_window, no iSTFT).
+   child processes that report their kernels' launches and both TF32
+   flags (``run_module``); exit 0, their files, TF32 off, one launch of
+   each kernel per separate() call (pixelwise: one frame_window, no
+   iSTFT); separate_cli's wavs against the same run on the CPU within
+   1e-4.
    vis_t180: ``inference.vis_video`` on a synthetic 30 fps clip, 180
    display frames in one separate() call: wall, peak memory, launches.
 13. sop_train: scripts/train_SoPpp.sh at full width on one card (B = 16,
@@ -111,6 +126,12 @@ script exits non-zero before printing any result.
    script's flags on data/mini/train.csv, iterations 1 to 3 and an eval:
    "Training Done!", one finite row per clip and branch, launches 2 per
    train step and 3 + 1 per eval step.
+14. cli_train: ``python -m avsep_tpu_torch.main --mode train`` with the
+   flags of scripts/train_MUSIC.sh unchanged (``--dtype bfloat16 --dft
+   matmul``, B = 2 x 16 on the one card) on data/mini/train.csv, cut to
+   iterations 1 to CLI_TRAIN_ITERS with a loss line every second one:
+   "Training Done!", finite losses, TF32 off, 2 frame_window launches per
+   step.
 Then the kernel table as one JSON line (launches summed over the main
 paths' runs, by path and per call), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -158,8 +179,8 @@ RAGGED = [(1021, 256, 3, 7), (512, 160, 1, 5), (400, 160, 2, 9),
           (8192, 2048, 1, 3)]
 SEED = 0
 DEVICE = "cuda"
-# scripts/train_MUSIC.sh on one card, in float32 (its --dtype bfloat16 is
-# outside the parity envelope; the port has no bf16 mode)
+# scripts/train_MUSIC.sh on one card: the train phase in float32 (the
+# parity envelope), train_bf16 in the script's own --dtype bfloat16
 TRAIN = dict(FLAGSHIP, loss="bce", match_weight=0.1, mask_thres=0.5,
              img_pool="maxpool", num_mix=2, batch_size_per_gpu=B,
              lr_sound=1e-3, lr_frame=1e-4, lr_steps=(50000, 70000, 90000),
@@ -188,6 +209,23 @@ TRAIN_SMALL = dict(arch_sound="unet5", audLen=16383, imgSize=64, dft="fft",
 # statistics: against each buffer's largest value.
 TRAIN_TOL = {"loss_rel_err": 1e-5, "momentum_global_l2_err": 1e-2,
              "momentum_l2_err": 5e-2, "param_err": 2e-3, "bn_stats_err": 1e-4}
+# bf16_card_vs_cpu: TRAIN_SMALL's AV and AO steps in bfloat16, the same
+# quantities.  Two bfloat16 implementations round some conv outputs the
+# other way (cuDNN and oneDNN sum in other orders), and an element that
+# rounds differently moves every later layer by up to 2^-8 of its scale.
+# On an H100 (NVIDIA H100 80GB HBM3, 700 W; tools/card_vs_cpu_spread.py
+# bf16, seeds 0 to 5, and chip_smoke's own draw) this read at most: losses
+# 2.9e-4; momentum buffers 5.3e-2 over all buffers and 0.57 per buffer in
+# L2 norm (the frame net's BatchNorm biases, 2 x 32 to 2 x 1568 values per
+# channel); parameters 0.61 of their change (frame.fc.weight, which moves
+# 0.3 % of the largest change); running statistics 8.7e-3.  The limits are
+# 3.4x, 2.8x, 1.8x, 1.6x and 2.3x those readings.
+BF16_TOL = {"loss_rel_err": 1e-3, "momentum_global_l2_err": 0.15,
+            "momentum_l2_err": 1.0, "param_err": 1.0, "bn_stats_err": 2e-2}
+# remat: timed steps of each kind after the compared one
+REMAT_TIMED = 3
+# cli_train: iterations 1 .. CLI_TRAIN_ITERS of train_MUSIC.sh (of 95000)
+CLI_TRAIN_ITERS = 4
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO_DIR, "build", "chip_smoke")
 # scripts/eval_MUSIC.sh: its dft is the default "fft"
@@ -238,6 +276,13 @@ SOP_SMALL = dict(arch_sound="unet5", audLen=16383, imgSize=64, binary_mask=0,
 # 24x the momentum readings (no fusion permutation to flip here, unlike
 # the flagship's), TRAIN_TOL's for the rest.
 SOP_TOL = dict(TRAIN_TOL, momentum_global_l2_err=1e-3, momentum_l2_err=5e-3)
+
+
+def fork(gen: torch.Generator) -> torch.Generator:
+    """A generator in ``gen``'s state: the same draws, ``gen`` untouched."""
+    g = torch.Generator()
+    g.set_state(gen.get_state())
+    return g
 
 
 def emit(phase: str, **fields) -> None:
@@ -494,7 +539,55 @@ def run_flagship(dev, gen):
          ms_per_request=1e3 * wall / REQUESTS, launches=launches,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     profile_flagship(nets, cfg, audio, frames)
-    return launches, nets
+    return launches, nets, (audio, frames, outs)
+
+
+def run_separate_bf16(nets32, flagship):
+    """The flagship in bfloat16, from the float32 nets' weights, on the
+    separate phase's inputs: clips/s, launches, and how far the outputs
+    lie from the float32 calls' (recorded, not bounded)."""
+    audio, frames, outs32 = flagship
+    cfg = Config(**FLAGSHIP, dtype="bfloat16")
+    nets = engine.build_nets(cfg)
+    for n16, n32 in zip(nets, nets32):
+        n16.load_state_dict(n32.state_dict(), strict=True)
+    for i in range(WARMUP):
+        engine.separate(nets, audio[i], frames[i], cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = [engine.separate(nets, audio[i], frames[i], cfg)
+            for i in range(REQUESTS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect_launches("separate_bf16", launches, REQUESTS, REQUESTS)
+    agree, wav_err, mask_err, mask_mean = [], 0.0, 0.0, []
+    for o, o32 in zip(outs, outs32):
+        w = o["wavs"]
+        if not bool(torch.isfinite(w).all()) or w.abs().max().item() > 1.0 \
+                or w.shape != o32["wavs"].shape:
+            raise AssertionError("separate_bf16: wavs not finite, outside "
+                                 "[-1, 1] or of another shape")
+        if o["masks"].dtype != torch.float32:
+            raise AssertionError("separate_bf16: masks are not float32")
+        agree.append((o["masks_linear"] == o32["masks_linear"]).float()
+                     .mean().item())
+        wav_err = max(wav_err, (w - o32["wavs"]).abs().max().item())
+        d = (o["masks"] - o32["masks"]).abs()
+        mask_err = max(mask_err, d.max().item())
+        mask_mean.append(d.mean().item())
+    emit("separate_bf16", config="bench.py flagship in bfloat16 (the "
+         "separate phase's weights and inputs)", batch=B, requests=REQUESTS,
+         wall_s=wall, clips_per_s=B * REQUESTS / wall,
+         ms_per_request=1e3 * wall / REQUESTS, launches=launches,
+         peak_mem_gib=peak, binary_mask_agreement=float(np.mean(agree)),
+         binary_mask_agreement_min=min(agree), wavs_max_abs_diff=wav_err,
+         soft_masks_max_abs_diff=mask_err,
+         soft_masks_mean_abs_diff=float(np.mean(mask_mean)))
+    return launches
 
 
 def profile_flagship(nets, cfg, audio, frames, calls: int = 2):
@@ -569,13 +662,17 @@ def check_no_silent_detach(dev):
                          "returned instead of raising")
 
 
-def run_train(dev, gen):
-    """The recipe of scripts/train_MUSIC.sh on one card, float32: 2 warm-up
-    steps, then TRAIN_STEPS timed steps, AV and AO by batch_scheduler."""
-    check_no_silent_detach(dev)
-    cfg = Config(**TRAIN)
+def run_train(dev, gen, dtype="float32"):
+    """The recipe of scripts/train_MUSIC.sh on one card in ``dtype`` (phase
+    ``train`` in float32, ``train_bf16``): 2 warm-up steps, then
+    TRAIN_STEPS timed steps, AV and AO by batch_scheduler."""
+    phase = "train" if dtype == "float32" else "train_bf16"
+    if dtype == "float32":
+        check_no_silent_detach(dev)
+    cfg = Config(**TRAIN, dtype=dtype)
     state = train.init_state(cfg, engine.build_nets(cfg),
                              torch.Generator().manual_seed(SEED))
+    p0 = {n: p.detach().clone() for n, p in train.named_parameters(state.nets)}
     steps = {v: train.make_train_step(cfg, state.nets, v)
              for v in (True, False)}
     use_vis = train.batch_scheduler(cfg)
@@ -618,18 +715,30 @@ def run_train(dev, gen):
                     kernels.overlap_add_normalize.launches}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if per_step != [2] * TRAIN_STEPS:
-        raise AssertionError(f"frame_window launches per train step "
+        raise AssertionError(f"{phase}: frame_window launches per train step "
                              f"{per_step}; expected 2 each")
     if launches["overlap_add_normalize"]:
-        raise AssertionError("overlap_add_normalize launched in training")
+        raise AssertionError(f"{phase}: overlap_add_normalize launched in "
+                             "training")
     losses = [float(e) for e in errs]
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite loss in training: {losses}")
+        raise AssertionError(f"{phase}: non-finite loss: {losses}")
     if not frozen or not all(frozen):
-        raise AssertionError(f"an AO step moved the frame net: {frozen}")
-    emit("train", config="scripts/train_MUSIC.sh on one card (unet7, "
+        raise AssertionError(f"{phase}: an AO step moved the frame net: "
+                             f"{frozen}")
+    params = dict(train.named_parameters(state.nets))
+    bufs = [b for gs in state.opt_state.values() if gs
+            for b in gs.momentum.values()]
+    if any(t.dtype != torch.float32 for t in [*params.values(), *bufs]):
+        raise AssertionError(f"{phase}: a parameter or momentum buffer is "
+                             "not float32")
+    moved = max((params[n] - p).abs().max().item() for n, p in p0.items())
+    if not moved > 0 or not any(b.abs().max().item() > 0 for b in bufs):
+        raise AssertionError(f"{phase}: the parameters or momentum did not "
+                             "move")
+    emit(phase, config="scripts/train_MUSIC.sh on one card (unet7, "
          "resnet18dilated-256, hidsep/sig, bce, binary weighted masks, "
-         "float32, TF32 off, dft matmul)", batch=B, steps=TRAIN_STEPS,
+         f"{dtype}, TF32 off, dft matmul)", batch=B, steps=TRAIN_STEPS,
          av_steps=len(times[True]), ao_steps=len(times[False]),
          ms_per_av_step=float(np.median(times[True])),
          ms_per_ao_step=float(np.median(times[False])),
@@ -637,9 +746,10 @@ def run_train(dev, gen):
          samples_per_s=B * TRAIN_STEPS / wall, peak_mem_gib=peak,
          frame_window_launches_per_step=per_step, launches=launches,
          losses=losses, ao_steps_left_frame_unchanged=frozen,
-         silent_detach="raises")
+         params_and_momentum_float32=True, largest_param_move=moved,
+         **({"silent_detach": "raises"} if dtype == "float32" else {}))
     av_step = steps[True]
-    profile_calls("train_profile", lambda i: av_step(
+    profile_calls(f"{phase}_profile", lambda i: av_step(
         state, batches[i], generator=swap), 1, step="AV")
     return launches
 
@@ -662,10 +772,14 @@ def spread_weights(nets, gen) -> None:
                 p.copy_(0.1 * noise)
 
 
-def train_card_vs_cpu(dev, gen):
+def train_card_vs_cpu(dev, gen, dtype="float32"):
     """One AV and one AO step at a small size from the same weights and
-    batches on the card and on the CPU (dft fft, binary_mask 0)."""
-    cfg = Config(**{**TRAIN, **TRAIN_SMALL})
+    batches on the card and on the CPU (dft fft, binary_mask 0), in
+    ``dtype``: phase ``train_card_vs_cpu`` within ``TRAIN_TOL`` in float32,
+    ``bf16_card_vs_cpu`` within ``BF16_TOL``."""
+    phase, tol = (("train_card_vs_cpu", TRAIN_TOL) if dtype == "float32"
+                  else ("bf16_card_vs_cpu", BF16_TOL))
+    cfg = Config(**{**TRAIN, **TRAIN_SMALL}, dtype=dtype)
     batches = train_batches(gen, torch.device("cpu"), 2, 2,
                             aud_len=cfg.audLen, img=cfg.imgSize)
     swap = torch.rand(2, generator=gen)
@@ -689,31 +803,41 @@ def train_card_vs_cpu(dev, gen):
             ms.append(float(m["err"]))
         states[d], metrics[d] = st, ms
     res = compare_states(states, metrics, p0)
-    emit("train_card_vs_cpu", batch=2, dft="fft", binary_mask=0,
-         steps=["AV", "AO"], tolerance=TRAIN_TOL, losses_cuda=metrics["cuda"],
+    emit(phase, batch=2, dft="fft", binary_mask=0, dtype=dtype,
+         steps=["AV", "AO"], tolerance=tol, losses_cuda=metrics["cuda"],
          losses_cpu=metrics["cpu"], **res)
-    check_tol("train card vs CPU", res, TRAIN_TOL)
+    check_tol(phase, res, tol)
+
+
+def _cpu(sd):
+    if isinstance(sd, dict):
+        return {k: _cpu(v) for k, v in sd.items()}
+    return sd.detach().cpu() if isinstance(sd, torch.Tensor) else sd
 
 
 def compare_states(states, metrics, p0):
-    """Card against CPU after the same steps from the same weights
-    (``p0``, the parameters before them): losses, parameters against their
-    change, momentum buffers, running statistics, group counts."""
+    """``states["cuda"]`` against ``states["cpu"]`` (the reference; on any
+    device) after the same steps from the same weights (``p0``, the
+    parameters before them): losses, parameters against their change,
+    momentum buffers, running statistics, group counts."""
     res = {"loss_rel_err": max(abs(g / c - 1.0) for g, c in
                                zip(metrics["cuda"], metrics["cpu"]))}
-    g_sd, c_sd = states["cuda"].state_dict(), states["cpu"].state_dict()
+    g_sd, c_sd = (_cpu(states["cuda"].state_dict()),
+                  _cpu(states["cpu"].state_dict()))
     g_p = {n: p.detach().cpu()
            for n, p in train.named_parameters(states["cuda"].nets)}
-    c_p = dict(train.named_parameters(states["cpu"].nets))
+    c_p = {n: p.detach().cpu()
+           for n, p in train.named_parameters(states["cpu"].nets)}
     moves = {n: (p.detach() - p0[n]).abs().max().item()
              for n, p in c_p.items()}
     top_move = max(moves.values())
     # each parameter against its change since the start, less a few float32
     # ulps of its value
-    res["param_err"] = max(
-        ((g_p[n] - p.detach()).abs().max().item()
-         - 1e-6 * p.detach().abs().max().item())
-        / max(moves[n], 1e-4 * top_move) for n, p in c_p.items())
+    res["param_err"], res["param_worst"] = max(
+        (((g_p[n] - p.detach()).abs().max().item()
+          - 1e-6 * p.detach().abs().max().item())
+         / max(moves[n], 1e-4 * top_move), n) for n, p in c_p.items())
+    res["param_worst_move"] = moves[res["param_worst"]] / top_move
     bufs = {k: (g_sd["opt_state"][g]["momentum"][k].cpu(), v)
             for g, s in c_sd["opt_state"].items() if s
             for k, v in s["momentum"].items()}
@@ -773,6 +897,81 @@ def card_vs_cpu(dev, gen, nets_gpu):
                                      f"{res['binary_mask_agreement']:.4f} "
                                      "of bins < 0.99")
     emit("card_vs_cpu", batch=2, dft="fft", tolerance=1e-4, **res)
+
+
+def run_remat(dev, gen):
+    """One AV step of the train_MUSIC.sh recipe (float32) at B = 16 with
+    and without ``remat`` from the same weights and batch, within
+    ``TRAIN_TOL``; then REMAT_TIMED more AV steps of each kind, in turn:
+    ms per step (host clock, synchronized) and peak memory (both states
+    resident), and the peak above what was allocated before the step."""
+    batches = train_batches(gen, dev, 1 + REMAT_TIMED, B)
+    states, metrics, steps, per_step = {}, {}, {}, []
+    weights = p0 = None
+    reset_launches()
+    # "cpu" is the plain step (the reference of compare_states), "cuda" the
+    # rematerialized one; both on the card
+    for key, remat in (("cpu", False), ("cuda", True)):
+        cfg = Config(**TRAIN, remat=remat)
+        st = train.init_state(cfg, engine.build_nets(cfg),
+                              torch.Generator().manual_seed(SEED))
+        if weights is None:
+            weights = [{k: v.clone() for k, v in net.state_dict().items()}
+                       for net in st.nets]
+            p0 = {n: p.detach().cpu().clone()
+                  for n, p in train.named_parameters(st.nets)}
+        for net, sd in zip(st.nets, weights):
+            net.load_state_dict(sd)
+        steps[key] = train.make_train_step(cfg, st.nets, True)
+        n0 = kernels.frame_window.launches
+        st, m = steps[key](st, batches[0])
+        per_step.append(kernels.frame_window.launches - n0)
+        states[key], metrics[key] = st, [float(m["err"])]
+    del weights
+    diff = compare_states(states, metrics, p0)
+    bn_equal = all(
+        torch.equal(v, states["cpu"].nets[i].state_dict()[k])
+        for i, net in enumerate(states["cuda"].nets)
+        for k, v in net.state_dict().items()
+        if k.endswith(("running_mean", "running_var", "num_batches_tracked")))
+    res = {k: {"ms": [], "peak_gib": [], "above_resident_gib": []}
+           for k in states}
+    for b in batches[1:]:
+        for key in states:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            n0 = kernels.frame_window.launches
+            t0 = time.perf_counter()
+            states[key], _ = steps[key](states[key], b)
+            torch.cuda.synchronize()
+            res[key]["ms"].append(1e3 * (time.perf_counter() - t0))
+            peak = torch.cuda.max_memory_allocated()
+            res[key]["peak_gib"].append(peak / 2 ** 30)
+            res[key]["above_resident_gib"].append((peak - before) / 2 ** 30)
+            per_step.append(kernels.frame_window.launches - n0)
+    launches = read_launches()
+    if per_step != [2] * len(per_step):
+        raise AssertionError(f"remat: frame_window launches per step "
+                             f"{per_step}; expected 2 each")
+    if launches["overlap_add_normalize"]:
+        raise AssertionError("remat: overlap_add_normalize launched")
+    plain, remat = res["cpu"], res["cuda"]
+    emit("remat", config="scripts/train_MUSIC.sh on one card, float32, one "
+         "AV step with and without remat from the same weights and batch",
+         batch=B, tolerance=TRAIN_TOL, loss_plain=metrics["cpu"][0],
+         loss_remat=metrics["cuda"][0], bn_buffers_bit_for_bit=bn_equal,
+         **diff, timed_steps=REMAT_TIMED,
+         plain_ms_per_av_step=float(np.median(plain["ms"])),
+         remat_ms_per_av_step=float(np.median(remat["ms"])),
+         plain_peak_mem_gib=max(plain["peak_gib"]),
+         remat_peak_mem_gib=max(remat["peak_gib"]),
+         plain_above_resident_gib=max(plain["above_resident_gib"]),
+         remat_above_resident_gib=max(remat["above_resident_gib"]),
+         plain_step_ms=plain["ms"], remat_step_ms=remat["ms"],
+         frame_window_launches_per_step=per_step, launches=launches)
+    check_tol("remat against the plain step", diff, TRAIN_TOL)
+    return launches
 
 
 class Clips:
@@ -1028,14 +1227,11 @@ def cli_eval():
         "--list_val", manifest, "--num_vis", "0", "--workers", "4",
         "--ckpt", os.path.join(OUT_DIR, "cli")]
     cfg = parse_args(argv)
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-u", "-m", "avsep_tpu_torch.main",
-                           *argv], cwd=REPO_DIR, capture_output=True,
-                          text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    if proc.returncode != 0 or "Evaluation Done!" not in proc.stdout:
-        raise AssertionError(f"cli_eval exited {proc.returncode}:\n"
-                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    wall, out, launches, tf32 = run_module("cli_eval",
+                                           "avsep_tpu_torch.main", argv)
+    if "Evaluation Done!" not in out:
+        raise AssertionError(f"cli_eval: no 'Evaluation Done!':\n"
+                             f"{out[-3000:]}")
     with open(os.path.join(REPO_DIR, manifest)) as f:
         n = cfg.val_repeat * sum(1 for line in f if line.count(",") >= 1)
     run = os.path.join(cfg.ckpt, cfg.id)
@@ -1047,9 +1243,13 @@ def cli_eval():
             raise AssertionError(f"cli_eval {branch}: {len(rows)} rows "
                                  f"(expected {n}) or non-finite metrics")
         means[branch] = float(np.mean([float(r["sdr"]) for r in rows]))
+    eval_steps = 2 * -(-n // cfg.batch_size)
+    expect_launches("cli_eval", launches, 3 * eval_steps, eval_steps)
     emit("cli_eval", argv=argv, clips=n, wall_s=wall, mean_sdr=means,
-         summary=[line for line in proc.stdout.splitlines()
+         launches=launches, tf32=tf32,
+         summary=[line for line in out.splitlines()
                   if line.startswith("[Eval Summary]")])
+    return launches, eval_steps
 
 
 # ------------------------------------------------------------- slice 5
@@ -1057,6 +1257,7 @@ def cli_eval():
 
 _CHILD = """
 import json, runpy, sys
+import torch
 from avsep_tpu_torch.ops import kernels
 sys.argv = sys.argv[1:]
 try:
@@ -1064,7 +1265,9 @@ try:
 finally:
     print(json.dumps({"launches": {
         "frame_window": kernels.frame_window.launches,
-        "overlap_add_normalize": kernels.overlap_add_normalize.launches}}),
+        "overlap_add_normalize": kernels.overlap_add_normalize.launches},
+        "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
+                 "cuda_matmul": torch.backends.cuda.matmul.allow_tf32}}),
         flush=True)
 """
 
@@ -1072,8 +1275,9 @@ finally:
 def run_module(phase, module, argv, timeout=600):
     """``python -m module argv...`` in a child process (through
     ``runpy.run_module``, what ``-m`` runs), from the repository's root;
-    the child prints its kernels' launch counts as its last line.  Returns
-    (wall seconds, stdout, launches); raises if the child fails."""
+    the child prints its kernels' launch counts and both TF32 flags as its
+    last line.  Returns (wall seconds, stdout, launches, TF32 flags);
+    raises if the child fails or left a TF32 flag on."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-u", "-c", _CHILD, module, *argv],
                           cwd=REPO_DIR, capture_output=True, text=True,
@@ -1083,8 +1287,11 @@ def run_module(phase, module, argv, timeout=600):
         raise AssertionError(f"{phase}: python -m {module} exited "
                              f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
                              f"{proc.stderr[-3000:]}")
-    launches = json.loads(proc.stdout.strip().splitlines()[-1])["launches"]
-    return wall, proc.stdout, launches
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    if any(report["tf32"].values()):
+        raise AssertionError(f"{phase}: python -m {module} ran with TF32 on: "
+                             f"{report['tf32']}")
+    return wall, proc.stdout, report["launches"], report["tf32"]
 
 
 def opts_flags(name: str):
@@ -1267,17 +1474,29 @@ def run_separate_cli():
                           for i in range(2)),
             "--frames", *(os.path.join(DUET_FRAMES, f"d0{i}.mp4")
                           for i in range(2)), "--out_dir", out]
-    wall, _, launches = run_module("separate_cli",
-                                   "avsep_tpu_torch.separate_cli", argv)
+    wall, _, launches, tf32 = run_module("separate_cli",
+                                         "avsep_tpu_torch.separate_cli", argv)
     expect_launches("separate_cli", launches, 1, 1)
+    # the same run on the CPU, in this process
+    from avsep_tpu_torch import separate_cli
+    out_cpu = out + "_cpu"
+    separate_cli.main(argv[:-1] + [out_cpu], device="cpu")
     L = HOP * (config.FLAGSHIP.WS - 1)
+    err = 0.0
     for i in range(2):
         for n in (1, 2):
-            w, sr = read_wav(os.path.join(out, f"d0{i}_src{n}.wav"))
+            name = f"d0{i}_src{n}.wav"
+            w, sr = read_wav(os.path.join(out, name))
             if w.shape != (L,) or not np.isfinite(w).all():
-                raise AssertionError(f"separate_cli: d0{i}_src{n}.wav is "
-                                     f"not {L} finite samples")
-    emit("separate_cli", argv=argv, wall_s=wall, wavs=4, launches=launches)
+                raise AssertionError(f"separate_cli: {name} is not {L} "
+                                     "finite samples")
+            err = max(err, float(np.abs(
+                w - read_wav(os.path.join(out_cpu, name))[0]).max()))
+    emit("separate_cli", argv=argv, wall_s=wall, wavs=4, launches=launches,
+         tf32=tf32, cpu_run_max_abs_err=err, tolerance=1e-4)
+    if err > 1e-4:
+        raise AssertionError(f"separate_cli: the card's wavs differ from the "
+                             f"CPU run's by {err} > 1e-4")
     return launches, 1
 
 
@@ -1313,8 +1532,8 @@ def run_inference(duet, solo):
                 opts_flags("inference.sh")] + [
             "--list_val", solo if mode == "synthesis" else duet,
             "--ckpt", ckpt]
-        wall, _, got = run_module(f"inference {mode}",
-                                  "avsep_tpu_torch.inference", argv)
+        wall, _, got, tf32 = run_module(f"inference {mode}",
+                                        "avsep_tpu_torch.inference", argv)
         expect_launches(f"inference {mode}", got, n, n)
         cfg = parse_args(argv)
         root = os.path.join(ckpt, cfg.id, "demo")
@@ -1322,7 +1541,8 @@ def run_inference(duet, solo):
                 "sweep": "duet_1/mix.jpg", "synthesis": "synthesis/gt2.wav"}
         if not os.path.exists(os.path.join(root, want[mode])):
             raise AssertionError(f"inference {mode}: {want[mode]} missing")
-        res[mode] = {"wall_s": wall, "separate_calls": n, "launches": got}
+        res[mode] = {"wall_s": wall, "separate_calls": n, "launches": got,
+                     "tf32": tf32}
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
     emit("inference", flags="scripts/inference.sh", manifests=[duet, solo],
@@ -1508,8 +1728,8 @@ def sop_cli():
         manifest, "--list_val", manifest, "--num_iters", "4",
         "--eval_iter", "3", "--disp_iter", "1", "--num_fsteps", "0",
         "--num_vis", "0", "--ckpt", os.path.join(OUT_DIR, "sop_cli")]
-    wall, out, launches = run_module("sop_cli", "avsep_tpu_torch.sop_main",
-                                     argv, timeout=900)
+    wall, out, launches, tf32 = run_module(
+        "sop_cli", "avsep_tpu_torch.sop_main", argv, timeout=900)
     if "Training Done!" not in out:
         raise AssertionError(f"sop_cli: no 'Training Done!':\n{out[-3000:]}")
     cfg = parse_args(argv)
@@ -1526,9 +1746,44 @@ def sop_cli():
                                  f"(expected {n}) or non-finite metrics")
     emit("sop_cli", argv=argv, wall_s=wall, batch=cfg.batch_size,
          train_steps=3, eval_steps=eval_steps, clips=n, launches=launches,
+         tf32=tf32,
          eval=[line for line in out.splitlines()
                if line.startswith("[SoP++ Eval]")])
     return launches, 3 + eval_steps
+
+
+def cli_train():
+    """``python -m avsep_tpu_torch.main --mode train`` with the flags of
+    scripts/train_MUSIC.sh as they stand (``--dtype bfloat16 --dft
+    matmul``) on data/mini/train.csv.  Cuts: the manifests (MUSIC needs a
+    download), ``--num_iters`` 95001 -> CLI_TRAIN_ITERS + 1 (the loop stops
+    before it) and ``--disp_iter`` 20 -> 2 (a loss line every second
+    iteration); no eval or checkpoint tick is reached."""
+    manifest = os.path.join("data", "mini", "train.csv")
+    argv = ["--mode", "train"] + script_flags("train_MUSIC.sh") + [
+        "--av_list_train", manifest, "--ao_list_train", manifest,
+        "--list_val", manifest, "--num_iters", str(CLI_TRAIN_ITERS + 1),
+        "--disp_iter", "2", "--ckpt", os.path.join(OUT_DIR, "cli_train")]
+    cfg = parse_args(argv)
+    if (cfg.dtype, cfg.dft) != ("bfloat16", "matmul"):
+        raise AssertionError(f"cli_train: train_MUSIC.sh gave dtype "
+                             f"{cfg.dtype}, dft {cfg.dft}")
+    wall, out, launches, tf32 = run_module("cli_train",
+                                           "avsep_tpu_torch.main", argv,
+                                           timeout=900)
+    losses = [float(m) for m in re.findall(r"loss: ([-+0-9.eE]+|nan|inf),",
+                                           out)]
+    if "Training Done!" not in out or len(losses) != CLI_TRAIN_ITERS // 2 \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f"cli_train: no 'Training Done!' or losses "
+                             f"{losses}:\n{out[-3000:]}")
+    expect_launches("cli_train", launches, 2 * CLI_TRAIN_ITERS, 0)
+    emit("cli_train", argv=argv, batch=cfg.batch_size, dtype=cfg.dtype,
+         dft=cfg.dft, iterations=CLI_TRAIN_ITERS, wall_s=wall, losses=losses,
+         launches=launches, tf32=tf32,
+         cuts={"manifests": "data/mini/train.csv", "num_iters":
+               [95001, CLI_TRAIN_ITERS + 1], "disp_iter": [20, 2]})
+    return launches, CLI_TRAIN_ITERS
 
 
 def run_pixelwise(duet):
@@ -1538,8 +1793,8 @@ def run_pixelwise(duet):
     65535 samples)."""
     argv = opts_flags("vis_sound_map.sh") + [
         "--list_val", duet, "--ckpt", os.path.join(OUT_DIR, "pixelwise")]
-    wall, _, launches = run_module("pixelwise", "avsep_tpu_torch.inference",
-                                   argv)
+    wall, _, launches, tf32 = run_module(
+        "pixelwise", "avsep_tpu_torch.inference", argv)
     expect_launches("pixelwise", launches, 1, 0)
     cfg = parse_args(argv)
     masks = np.load(os.path.join(cfg.ckpt, cfg.id, "demo", "pixelwise",
@@ -1551,7 +1806,7 @@ def run_pixelwise(duet):
         raise AssertionError(f"pixelwise: masks {masks.shape}, finite "
                              f"{np.isfinite(masks).all()}")
     emit("pixelwise", flags="scripts/vis_sound_map.sh", wall_s=wall,
-         masks_shape=list(masks.shape), launches=launches)
+         masks_shape=list(masks.shape), launches=launches, tf32=tf32)
     return launches, 1
 
 
@@ -1562,8 +1817,7 @@ def main() -> int:
         return 2
 
     smi = nvidia_smi_line()
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    engine.full_float32()
     dev = torch.device(DEVICE)
     emit("card", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda,
@@ -1581,20 +1835,29 @@ def main() -> int:
     del flush
     check_ragged(dev, gen)
 
-    sep_launches, nets = run_flagship(dev, gen)
+    sep_launches, nets, flagship = run_flagship(dev, gen)
     card_vs_cpu(dev, gen, nets)
-    del nets
     # each main path's launches, counted from 0 just before its run, and its
     # calls: separate() calls, train steps, eval steps, serve dispatches,
     # CLI runs, the demos' separate() calls, SoP++ steps (sop_cli: train
-    # steps and eval steps)
-    launches = {"separate": sep_launches, "train": run_train(dev, gen)}
-    calls = {"separate": REQUESTS, "train": TRAIN_STEPS,
-             "eval": 2 * EVAL_BATCHES}
+    # steps and eval steps; cli_eval: eval steps; cli_train: train steps)
+    launches = {"separate": sep_launches,
+                "separate_bf16": run_separate_bf16(nets, flagship)}
+    del nets, flagship
+    # a bfloat16 phase draws what its float32 partner draws, from a copy of
+    # the generator, and the remat phase from a generator of its own: they
+    # take no draw from ``gen``, so the phases after them keep their inputs
+    launches["train_bf16"] = run_train(dev, fork(gen), "bfloat16")
+    launches["train"] = run_train(dev, gen)
+    launches["remat"] = run_remat(dev, torch.Generator().manual_seed(SEED))
+    calls = {"separate": REQUESTS, "separate_bf16": REQUESTS,
+             "train": TRAIN_STEPS, "train_bf16": TRAIN_STEPS,
+             "remat": 2 * (1 + REMAT_TIMED), "eval": 2 * EVAL_BATCHES}
+    train_card_vs_cpu(dev, fork(gen), "bfloat16")
     train_card_vs_cpu(dev, gen)
     launches["eval"] = run_eval(dev, gen)
     eval_card_vs_cpu(dev, gen)
-    cli_eval()
+    launches["cli_eval"], calls["cli_eval"] = cli_eval()
     launches["serve"], calls["serve"] = run_serve(dev)
     launches["separate_cli"], calls["separate_cli"] = run_separate_cli()
     duet, solo = write_manifests()
@@ -1604,6 +1867,7 @@ def main() -> int:
     sop_card_vs_cpu(dev, gen)
     launches["sop_cli"], calls["sop_cli"] = sop_cli()
     launches["pixelwise"], calls["pixelwise"] = run_pixelwise(duet)
+    launches["cli_train"], calls["cli_train"] = cli_train()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -40,7 +40,7 @@ def script_args(name, **subst):
 
 
 @pytest.mark.parametrize("script,subst", [
-    ("train_MUSIC.sh", {"dtype": "float32"}),
+    ("train_MUSIC.sh", {}),
     ("eval_MUSIC.sh", {})])
 def test_script_flags_parse_as_the_jax_package(script, subst):
     argv = script_args(script, **subst)
@@ -55,8 +55,17 @@ def test_script_flags_parse_as_the_jax_package(script, subst):
     assert got.batch_size == want.batch_size
 
 
+@pytest.mark.parametrize("argv", [
+    ["--dtype", "bfloat16"],
+    ["--dtype", "bfloat16", "--dft", "matmul", "--remat", "1"]])
+def test_dtype_and_remat_parse_as_the_jax_package(argv):
+    got, want = parse_args(argv), jparse_args(argv)
+    assert (got.dtype, got.dft, got.remat) == (want.dtype, want.dft,
+                                               want.remat)
+    assert got.dtype == "bfloat16"
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["--dtype", "bfloat16"], "Queue 2"),
     (["--use_pallas", "1"], "Flags that raise"),
     (["--mesh_shape", "2"], "parallel/"),
     (["--data_axis", "batch"], "parallel/"),
@@ -232,3 +241,18 @@ def test_command_line_needs_a_gpu(manifest, tmp_path):  # noqa: F811
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert "no CUDA device is available" in out.stderr
+
+
+def test_plots_are_skipped_without_matplotlib(tmp_path, monkeypatch,
+                                              capsys):
+    """An eval tick's plots need matplotlib; without it they are skipped
+    with one line instead of stopping the train loop."""
+    from avsep_tpu_torch.utils.meters import new_history
+    from avsep_tpu_torch.utils.viz import plot_loss_metrics
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    history = new_history()
+    history["train"]["iter"].append(1)
+    history["train"]["err"].append(0.5)
+    plot_loss_metrics(str(tmp_path), history)
+    assert "matplotlib not found" in capsys.readouterr().out
+    assert not os.listdir(tmp_path)

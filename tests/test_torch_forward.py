@@ -266,8 +266,10 @@ def test_precomputed_magnitudes_pass_through():
     assert got[0] is mag_mix and got[1] is mags
 
 
-def test_remat_raises_naming_the_roadmap_item():
-    _, cfg = configs(remat=True)
-    _, _, _, pnets = make_nets(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        engine.forward(pnets, make_batch(4), cfg, True, train=True)
+@pytest.mark.parametrize("use_vis", [True, False])
+def test_remat_forward_matches_jax(use_vis):
+    """``remat=True`` on both sides (``torch.utils.checkpoint`` against
+    ``jax.checkpoint``): the loss, the running statistics and every
+    gradient within the plain forward's tolerances."""
+    jax_side, port_side = run_both({"remat": True}, use_vis=use_vis)
+    check(jax_side, port_side, use_vis)

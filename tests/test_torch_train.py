@@ -367,11 +367,12 @@ def test_checkpoint_keeps_latest_and_best_by_val_si_sdr(tmp_path):
 def test_what_this_slice_leaves_out_raises(monkeypatch):
     _, cfg = configs()
     nets = make_nets(cfg)[3]
+    # remat is ported (tests/test_torch_remat.py): a remat step runs
     remat = cfg.replace(remat=True)
     state = train.TrainState(0, nets, train.init_opt_state(remat, nets))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        train.make_train_step(remat, nets, True, device="cpu")(
-            state, make_batch(30))
+    _, m = train.make_train_step(remat, nets, True, device="cpu")(
+        state, make_batch(30))
+    assert np.isfinite(m["err"].item())
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         train.init_opt_state(cfg.replace(load_clips=True), nets)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

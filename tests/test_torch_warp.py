@@ -61,6 +61,40 @@ def test_warp_matches_torch_grid_sample():
     _close(got.numpy(), ref.numpy(), rel=6e-5)
 
 
+
+@pytest.mark.parametrize("shape,span", [
+    ((2, 3, 16, 24, 9, 13), 1.0),     # every point inside [-1, 1]
+    ((2, 3, 16, 24, 9, 13), 1.4),     # points off the image: zero taps
+    ((1, 2, 7, 5, 11, 4), 2.5),       # odd sizes, most points far off
+])
+def test_grid_sample_matches_jax(shape, span):
+    """The general sampler on random grids against the JAX package's
+    gather, and both against float64, at 1e-5 of the output's largest
+    value: each side unnormalizes the coordinates in float32 and reads up
+    to 3e-6 of it away from the float64 result.  A point beyond the
+    border by more than a pixel takes zeros."""
+    B, C, H, W, HO, WO = shape
+    rs = np.random.RandomState(3)
+    x = rs.randn(B, C, H, W).astype(np.float32)
+    grid = rs.uniform(-span, span, (B, HO, WO, 2)).astype(np.float32)
+    grid[0, 0, 0] = (-1.0, 1.0)                  # the corners exactly
+    grid[0, 0, 1] = (1.0, -1.0)
+    ref = np.asarray(jw.grid_sample(jnp.asarray(x), jnp.asarray(grid)))
+    got = pw.grid_sample(torch.from_numpy(x), torch.from_numpy(grid))
+    assert got.shape == (B, C, HO, WO)
+    _close(got.numpy(), ref, rel=1e-5)
+    exact = torch.nn.functional.grid_sample(
+        torch.from_numpy(x).double(), torch.from_numpy(grid).double(),
+        align_corners=False).numpy()
+    _close(got.numpy(), exact, rel=1e-5)
+    _close(ref, exact, rel=1e-5)
+    if span > 1.2:
+        off = (np.abs(grid) > 1.0 + 1.0 / min(H, W)).any(-1)
+        assert off.any()
+        assert np.all(got.numpy()[np.broadcast_to(off[:, None],
+                                                  got.shape)] == 0.0)
+
+
 @pytest.mark.parametrize("log_freq", [True, False])
 @pytest.mark.parametrize("weighted_loss", [True, False])
 @pytest.mark.parametrize("binary_mask", [True, False])
