@@ -12,9 +12,9 @@ float32).
 
 :func:`parse_args` accepts every flag string of the JAX package, so the
 repository's ``scripts/*.sh`` option strings parse unchanged.  A flag of a
-feature the port lacks (``UNPORTED_FLAGS``), or ``--frame_decode native`` /
-``fast``, raises at a value other than its default, naming the
-``ROADMAP.md`` item it waits for: nothing is silently ignored.
+feature the port lacks (``UNPORTED_FLAGS``) raises at a value other than its
+default, naming the ``ROADMAP.md`` item it waits for: nothing is silently
+ignored.
 """
 
 from __future__ import annotations
@@ -138,9 +138,10 @@ class Config:
     # host->device audio encoding: "f32" (bit-exact) or "int16" (+ one gain
     # per source, about half the audio bytes; data/wire.py)
     audio_wire: str = "f32"
-    # host frame decode: "auto" and "pil" both decode with PIL here (the
-    # JAX package's C++ decode gives the same pixels); "native" and "fast"
-    # raise (FRAME_DECODE_ITEM)
+    # host frame decode (FRAME_DECODES; data/dataset.py): "auto" = the C++
+    # libjpeg decode when it builds and matches PIL on this host, else PIL;
+    # "native" = C++ or raise; "fast" = C++ at a reduced DCT scale or raise;
+    # "pil"
     frame_decode: str = "auto"
     # torch.profiler trace of iterations [profile_start, profile_start +
     # profile_steps) of the train loop, written to profile_dir (off if "")
@@ -183,7 +184,6 @@ DTYPES = ("float32", "bfloat16")
 
 # ROADMAP.md, where each feature the port lacks waits
 MESH_ITEM = "ROADMAP.md Queue 1, 'parallel/' (torch.distributed DDP)"
-FRAME_DECODE_ITEM = "ROADMAP.md Queue 1, 'data/native.py' (C++ decode)"
 KERNEL_SWITCH_ITEM = ("ROADMAP.md, 'Flags that raise' (the port runs its "
                       "kernels on every CUDA tensor; nothing switches them)")
 
@@ -198,16 +198,15 @@ UNPORTED_FLAGS = {
     "dist_procid": (0, MESH_ITEM),
     "dist_data": ("replicate", MESH_ITEM),
 }
-FRAME_DECODES = ("auto", "pil")
+FRAME_DECODES = ("auto", "pil", "native", "fast")
 
 
 def check_frame_decode(frame_decode: str) -> None:
-    """The port decodes frames with PIL: ``auto`` and ``pil`` do that;
-    ``native`` and ``fast`` (the JAX package's C++ decode) raise."""
+    """Raises ``ValueError`` for a ``frame_decode`` not in
+    ``FRAME_DECODES``."""
     if frame_decode not in FRAME_DECODES:
-        raise NotImplementedError(
-            f"--frame_decode {frame_decode} is not ported yet "
-            f"({FRAME_DECODE_ITEM}); use auto or pil")
+        raise ValueError(f"--frame_decode {frame_decode!r}: one of "
+                         f"{FRAME_DECODES}")
 
 
 _STORE_TRUE = ("load_clips", "one_frame", "fix_vis", "start_av_first",

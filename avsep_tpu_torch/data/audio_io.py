@@ -6,8 +6,9 @@ with ``librosa.load(path, sr=11025, mono=True, offset=o, duration=d)``
 standard library's ``wave`` module and resampled with a polyphase filter
 (``scipy.signal.resample_poly``), and the crop / zero-pad / gain / clamp of
 ``_load_audio`` (``dataset/base.py:156-172``) are reproduced exactly.  The
-JAX package's C++ reader (``data/native.py``) is not ported
-(``config.FRAME_DECODE_ITEM``); it returns the same samples.
+wav probe and read-crop go through the C++ host library (``data/native.py``)
+when it builds, as the JAX package's do, which also reads the float32 and
+24-bit files ``wave`` rejects.
 """
 
 from __future__ import annotations
@@ -18,11 +19,26 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from avsep_tpu_torch.data import native
+
 
 def read_wav(path: str, offset_sec: float = 0.0,
              duration_sec: Optional[float] = None
              ) -> Tuple[np.ndarray, int]:
-    """Read (a slice of) a PCM wav file as float32 mono in [-1, 1]."""
+    """Read (a slice of) a wav file as float32 mono in [-1, 1]: with the C++
+    reader when it built, else with the standard library's ``wave``."""
+    if native.native_available():
+        probe = native.wav_probe(path)
+        if probe is not None:
+            sr, n_frames = probe
+            start = max(0, int(offset_sec * sr))
+            if duration_sec is None:
+                count = max(n_frames - start, 0)
+            else:
+                count = int(duration_sec * sr)
+            got = native.wav_read_crop(path, start, min(count, 2 ** 31))
+            if got is not None:
+                return got[0], sr
     with wave.open(path, "rb") as w:
         sr = w.getframerate()
         n_ch = w.getnchannels()

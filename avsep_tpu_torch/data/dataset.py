@@ -10,11 +10,21 @@ crop retries, and center frames with temporally consistent transforms.
 Each ``__getitem__`` draws from a local ``random.Random((seed << 32) ^
 index)``, so a sample depends on its index and seed alone, whatever thread
 or process builds it, and equals the JAX dataset's sample bit for bit.
-Frames are decoded with PIL; the JAX package's C++ decode
-(``frame_decode native|fast``) is not ported and raises
-(``config.check_frame_decode``).  No STFT happens here: raw waveforms and
-uint8 frames go to the device.  This module imports numpy and PIL, never
-torch, so loader worker processes stay light.
+
+Frames and clips are decoded as ``cfg.frame_decode`` says, with the JAX
+package's rules (``avsep_tpu/data/dataset.py:183-220``): ``pil``; ``auto``,
+the C++ libjpeg decode (``data/native.py``) when its library loads and
+decodes as PIL does on this host, else PIL; ``native``, the C++ decode or
+raise; ``fast``, the C++ decode at a reduced DCT scale (approximate pixels)
+or raise.  The C++ route draws the same random numbers as the PIL route
+and gives the same pixels; a frame it cannot decode after the draws sends
+that clip through PIL with the same parameters.  The route is settled when
+the dataset is made (``frame_route``, from :meth:`decode_route`), so the
+library is built before any loader worker starts.
+
+No STFT happens here: raw waveforms and uint8 frames go to the device.
+This module imports numpy and PIL, never torch, so loader worker processes
+stay light.
 """
 
 from __future__ import annotations
@@ -28,10 +38,12 @@ import numpy as np
 from PIL import Image
 
 from avsep_tpu_torch.config import Config, check_frame_decode
+from avsep_tpu_torch.data import native
 from avsep_tpu_torch.data.audio_io import load_audio_crop
 from avsep_tpu_torch.data.video_transforms import (
-    center_crop, random_hflip, random_resized_crop, resize_shorter,
-    to_uint8_array, train_transform, val_transform)
+    center_crop, center_crop_box, random_hflip, random_resized_crop,
+    resize_shorter, resize_shorter_dims, rrc_params, to_uint8_array,
+    train_transform, val_transform)
 
 MUSIC11_CLASSES = [
     "accordion", "acoustic_guitar", "cello", "clarinet", "erhu", "flute",
@@ -57,6 +69,7 @@ class MusicMixDataset:
                  vis_data: Optional[str] = None, classes=None):
         check_frame_decode(cfg.frame_decode)
         self.cfg = cfg
+        self.frame_route = self.decode_route()
         self.split = split
         self.random_sample = random_sample
         self.vis_data = vis_data
@@ -168,16 +181,112 @@ class MusicMixDataset:
                              "{:06d}.jpg".format(min(max(i, 0), last)))
                 for i in idxs]
 
+    # ------------------------------------------------------ frame decode
+
+    def decode_route(self) -> str:
+        """``"native"`` or ``"fast"`` when frames go through the C++ decode,
+        ``"pil"`` otherwise; raises ``RuntimeError`` when ``frame_decode``
+        is ``native`` or ``fast`` and the frames library is unavailable
+        (``native.load_error("frames")`` says why)."""
+        fd = self.cfg.frame_decode
+        if fd == "pil":
+            return "pil"
+        if fd == "auto":
+            # prints why when it fails
+            return "native" if native.frames_selfcheck_ok() else "pil"
+        if not native.frames_available():
+            raise RuntimeError(
+                f"--frame_decode {fd}: the C++ frames library is "
+                f"unavailable ({native.load_error('frames')})")
+        return fd
+
+    @staticmethod
+    def _pil_apply(paths, resize, crop, final, flip) -> np.ndarray:
+        """Already-drawn transform parameters applied with PIL: the route
+        for a clip the C++ decode failed on after its draws."""
+        imgs = [Image.open(p).convert("RGB") for p in paths]
+        if resize:
+            imgs = [im.resize(resize, Image.BICUBIC) for im in imgs]
+        if crop:
+            left, top, cw, ch = crop
+            imgs = [im.crop((left, top, left + cw, top + ch)) for im in imgs]
+        if final:
+            imgs = [im.resize(final, Image.BICUBIC) for im in imgs]
+        if flip:
+            imgs = [im.transpose(Image.FLIP_LEFT_RIGHT) for im in imgs]
+        return to_uint8_array(imgs)
+
+    def _native_batch(self, paths, size, resize, crop, final, flip, route):
+        arr = native.frame_pipeline_batch(paths, size, size, resize=resize,
+                                          crop=crop, final=final, hflip=flip,
+                                          fast=route == "fast")
+        if arr is None:     # a decode failed after the draws
+            arr = self._pil_apply(paths, resize, crop, final, flip)
+        return arr
+
+    def _native_center_frames(self, paths, rng: random.Random, route: str):
+        """The C++ route of ``train_transform`` / ``val_transform``: the
+        same geometry and the same draws, in the same order; None (no draw
+        taken) when the first frame is not a readable JPEG."""
+        dims = native.jpeg_probe_dims(paths[0])
+        if dims is None:
+            return None
+        S = self.cfg.imgSize
+        if self.split == "train":
+            rw, rh = resize_shorter_dims(*dims, int(S * 1.1))
+            if (rw, rh) == (S, S):   # random_crop returns without a draw
+                crop = None
+            else:
+                crop = (rng.randint(0, max(rw - S, 0)),
+                        rng.randint(0, max(rh - S, 0)), S, S)
+            flip = rng.random() < 0.5
+        else:
+            rw, rh = resize_shorter_dims(*dims, S)
+            crop = (*center_crop_box(rw, rh, S), S, S)
+            flip = False
+        return self._native_batch(paths, S, (rw, rh), crop, None, flip,
+                                  route)
+
+    def _native_clip_frames(self, paths, rng: random.Random, route: str):
+        """The C++ route of the clip transform chain: Resize(-1, 256), then
+        train: RandomResizedCrop -> imgSize and a flip; val:
+        CenterCrop(min(imgSize, 224)); the same draws as the PIL route."""
+        dims = native.jpeg_probe_dims(paths[0])
+        if dims is None:
+            return None
+        rw, rh = resize_shorter_dims(*dims, 256)
+        final = None
+        if self.split == "train":
+            S = self.cfg.imgSize
+            crop = rrc_params(rw, rh, rng)
+            if crop is None:         # the 10-attempt fallback
+                m = min(rw, rh)
+                crop = (*center_crop_box(rw, rh, m), m, m)
+            final = (S, S)
+            flip = rng.random() < 0.5
+        else:
+            S = min(self.cfg.imgSize, 224)
+            crop = (*center_crop_box(rw, rh, S), S, S)
+            flip = False
+        return self._native_batch(paths, S, (rw, rh), crop, final, flip,
+                                  route)
+
     def get_frames(self, infos, center_times, rng: random.Random):
         cfg = self.cfg
+        route = self.frame_route
         out = []
         for info, t in zip(infos, center_times):
             paths = self.frame_paths(info, t, rng)
-            imgs = [Image.open(p).convert("RGB") for p in paths]
-            if self.split == "train":
-                out.append(train_transform(imgs, cfg.imgSize, rng))
-            else:
-                out.append(val_transform(imgs, cfg.imgSize))
+            arr = None
+            if route != "pil":
+                arr = self._native_center_frames(paths, rng, route)
+            if arr is None:
+                imgs = [Image.open(p).convert("RGB") for p in paths]
+                if self.split == "train":
+                    arr = train_transform(imgs, cfg.imgSize, rng)
+                else:
+                    arr = val_transform(imgs, cfg.imgSize)
+            out.append(arr)
         return np.stack(out)
 
     def get_frames_clips(self, infos, center_times, rng: random.Random):
@@ -187,6 +296,7 @@ class MusicMixDataset:
         train: Resize(-1, 256) -> RandomResizedCrop -> imgSize, flip; val:
         Resize(-1, 256) -> CenterCrop(min(imgSize, 224))."""
         cfg = self.cfg
+        route = self.frame_route
         center_list, clip_list = [], []
         for info, center_t in zip(infos, center_times):
             fpath, num_f, fps = info[1], float(info[2]), float(info[3])
@@ -201,15 +311,21 @@ class MusicMixDataset:
                 cidx = [center_idx + (i - cfg.num_frames // 2)
                         * cfg.stride_frames for i in range(cfg.num_frames)]
             cidx = [min(max(i, 0), int(num_f) - 1) for i in cidx]
-            all_imgs = [Image.open(os.path.join(fpath, "{:06d}.jpg".format(i)))
-                        .convert("RGB") for i in idxs + cidx]
-            all_imgs = resize_shorter(all_imgs, 256)
-            if self.split == "train":
-                all_imgs = random_resized_crop(all_imgs, cfg.imgSize, rng)
-                all_imgs = random_hflip(all_imgs, rng)
-            else:
-                all_imgs = center_crop(all_imgs, min(cfg.imgSize, 224))
-            arr = to_uint8_array(all_imgs)
+            paths = [os.path.join(fpath, "{:06d}.jpg".format(i))
+                     for i in idxs + cidx]
+            arr = None
+            if route != "pil":
+                arr = self._native_clip_frames(paths, rng, route)
+            if arr is None:
+                all_imgs = resize_shorter(
+                    [Image.open(p).convert("RGB") for p in paths], 256)
+                if self.split == "train":
+                    all_imgs = random_resized_crop(all_imgs, cfg.imgSize,
+                                                   rng)
+                    all_imgs = random_hflip(all_imgs, rng)
+                else:
+                    all_imgs = center_crop(all_imgs, min(cfg.imgSize, 224))
+                arr = to_uint8_array(all_imgs)
             clip_list.append(arr[: cfg.clip_len])
             center_list.append(arr[cfg.clip_len:])
         return np.stack(center_list), np.stack(clip_list)

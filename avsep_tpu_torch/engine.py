@@ -15,7 +15,8 @@ and the inference wrapper, ``inference.py:29-136``):
 Batches are dicts with the JAX package's keys and shapes, batch first:
 ``audios [B, N, L]`` (or the int16 wire's ``audios_i16`` + ``audio_gain``),
 optional ``audio_mix [B, L]`` (else the sum of ``audios``), ``frames
-[B, N, T, H, W, 3]`` (uint8 or float), or precomputed ``mag_mix``/``mags``.
+[B, N, T, H, W, 3]`` (uint8 or float), ``clips [B, N, clip_len, H, W, 3]``
+(under ``fusion_type CoLoc_ClipAtt``), or precomputed ``mag_mix``/``mags``.
 Separation's public shapes: ``audio_mix [B, L]``, ``frames
 [B, N, T, H, W, 3]``, ``wavs [B, N, L']``, ``masks [B, N, FO, T]``,
 ``masks_linear [B, N, F, T]``, ``att_maps [B, C, H, W]``.
@@ -23,16 +24,16 @@ Separation's public shapes: ``audio_mix [B, L]``, ``frames
 The forwards put the nets in train or eval mode as ``train`` says.  In
 train mode the BatchNorms normalize with batch statistics and update their
 running statistics in place (Flax's update, ``models/layers.py``), in the
-JAX package's order: the frame net once per source, each call from the
-previous call's statistics, and the sound net's second pass from the
-first's.  The audio-only slot swap takes injected uniforms or a
+JAX package's order: the frame (or motion) net once per source, each call
+from the previous call's statistics, and the sound net's second pass from
+the first's.  The audio-only slot swap takes injected uniforms or a
 ``torch.Generator``.
 
 ``cfg.dtype`` is the nets' compute dtype (:func:`build_nets`): under
 ``bfloat16`` the convolutions and the BatchNorm outputs are bfloat16,
 while the parameters, the running statistics, the fusion, the STFT, the
 masks and the losses stay float32 (``activate(upcast=True)``).
-``cfg.remat`` rematerializes the frame and sound nets' forwards of a train
+``cfg.remat`` rematerializes the visual and sound nets' forwards of a train
 step in the backward pass (``torch.utils.checkpoint``), as the JAX package
 wraps them in ``jax.checkpoint``: the recompute leaves the BatchNorm running
 statistics alone, and an audio-only slot swap is drawn before it, so the
@@ -63,18 +64,17 @@ from avsep_tpu_torch.ops.prepare import PreparedBatch, prepare
 from avsep_tpu_torch.ops.stft import istft, stft_magphase
 from avsep_tpu_torch.ops.warp import unwarp_mask
 
-# ROADMAP.md, "Queue 1": what the port leaves for later slices
-MOTION_ITEM = "ROADMAP.md Queue 1, 'models/motion.py'"
-
 # cfg.dtype -> the nets' compute dtype
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class Nets(NamedTuple):
-    """The sound U-Net and the frame encoder (the reference builds
-    (net_sound, net_frame), main.py:608-625)."""
+    """The sound U-Net, the frame encoder and, under ``--load_clips``, the
+    motion net (the reference builds (net_sound, net_frame) and a
+    net_motion, main.py:608-625)."""
     sound: Any
     frame: Any
+    motion: Any = None
 
 
 def full_float32() -> None:
@@ -104,6 +104,8 @@ def nets_device(nets: Nets, device=None) -> torch.device:
     if a parameter lies on another device."""
     dev = resolve_device(device)
     for net_name, net in nets._asdict().items():
+        if net is None:
+            continue
         for name, p in net.named_parameters():
             if p.device.type != dev.type:
                 raise ValueError(f"{net_name}.{name} lies on {p.device}, "
@@ -112,15 +114,16 @@ def nets_device(nets: Nets, device=None) -> torch.device:
 
 
 def build_nets(cfg: Config, device=None) -> Nets:
-    """The sound U-Net and the frame encoder of ``cfg`` on ``device``, in
-    eval mode, computing in ``cfg.dtype`` with float32 parameters (weights
-    as PyTorch initializes them; see :func:`init_params` for the
-    reference's initializers)."""
+    """The sound U-Net, the frame encoder and, under ``cfg.load_clips``,
+    the motion net of ``cfg`` on ``device``, in eval mode, computing in
+    ``cfg.dtype`` with float32 parameters (weights as PyTorch initializes
+    them; see :func:`init_params` for the reference's initializers).
+    ``fusion_type CoLoc_ClipAtt`` attends over the motion net's maps, so it
+    needs ``load_clips``."""
     dev = resolve_device(device)
-    if cfg.load_clips or cfg.fusion_type == "CoLoc_ClipAtt":
-        raise NotImplementedError(
-            "the motion branch (--load_clips, fusion_type CoLoc_ClipAtt) is "
-            f"not ported yet ({MOTION_ITEM})")
+    if cfg.fusion_type == "CoLoc_ClipAtt" and not cfg.load_clips:
+        raise ValueError("fusion_type=CoLoc_ClipAtt requires --load_clips "
+                         "(the visual stream is the motion net over clips)")
     dtype = COMPUTE_DTYPES[cfg.dtype]
     sound = ModelBuilder.build_sound(
         arch=cfg.arch_sound, fc_dim=cfg.num_channels,
@@ -129,23 +132,31 @@ def build_nets(cfg: Config, device=None) -> Nets:
     frame = ModelBuilder.build_frame(
         arch=cfg.arch_frame, fc_dim=cfg.vis_channels,
         pool_type=cfg.img_pool, dtype=dtype)
-    return Nets(sound.to(dev).eval(), frame.to(dev).eval())
+    motion = None
+    if cfg.load_clips:
+        motion = ModelBuilder.build_motion(dtype=dtype).to(dev).eval()
+    return Nets(sound.to(dev).eval(), frame.to(dev).eval(), motion)
 
 
 def init_params(cfg: Config, nets: Nets, generator: torch.Generator,
                 device=None) -> Nets:
     """Fill ``nets`` with the reference's initializers (U-Net convs
     N(0, 0.001), BatchNorm weight N(1, 0.02), the outer conv's bias
-    U(+-1/sqrt(fan_in)); ResNet convs He-normal on fan_out), drawn on the
-    CPU from ``generator``, so one seed gives the same weights on every
-    device.  Returns the nets on ``device``, in eval mode."""
+    U(+-1/sqrt(fan_in)); ResNet and motion-net convs He-normal on fan_out),
+    drawn on the CPU from ``generator`` in the order sound, frame, motion,
+    so one seed gives the same weights on every device.  Returns the nets
+    on ``device``, in eval mode."""
     dev = resolve_device(device)
     if generator.device.type != "cpu":
         raise ValueError("init_params draws on the CPU; pass a CPU "
                          "torch.Generator")
-    nets.sound.reset_parameters_(generator)
-    nets.frame.reset_parameters_(generator)
-    return Nets(nets.sound.to(dev).eval(), nets.frame.to(dev).eval())
+    out = []
+    for net in nets:
+        if net is not None:
+            net.reset_parameters_(generator)
+            net = net.to(dev).eval()
+        out.append(net)
+    return Nets(*out)
 
 
 # ------------------------------------------------------------------ helpers
@@ -195,6 +206,17 @@ def _frame_features(nets: Nets, frames_n: torch.Tensor, cfg: Config,
     return activate(feats, cfg.img_activation, upcast=False)
 
 
+def _motion_features(nets: Nets, clips_n: torch.Tensor, cfg: Config,
+                     remat: bool = False) -> torch.Tensor:
+    """One source's clip ``[B, T, H, W, 3]`` -> the activated motion map
+    ``[B, h, w, C]``: the motion net, then the mean over time (the JAX
+    package's live motion branch, ``avsep_tpu/engine.py:178-202``)."""
+    clips_n = normalize_frames(clips_n)
+    feats = _call(nets.motion, remat, clips_n)
+    return activate(torch.mean(feats, dim=1), cfg.img_activation,
+                    upcast=False)
+
+
 def _sound_forward(nets: Nets, log_mag: torch.Tensor,
                    v: Optional[torch.Tensor], swap_uniforms=None,
                    generator=None, remat: bool = False):
@@ -238,8 +260,9 @@ def to_device(batch: Dict, device: torch.device, drop=(), cfg=None
 
 
 def _set_mode(nets: Nets, train: bool) -> None:
-    nets.sound.train(train)
-    nets.frame.train(train)
+    for net in nets:
+        if net is not None:
+            net.train(train)
 
 
 # ------------------------------------------------------------ batch helpers
@@ -332,15 +355,19 @@ def forward_av(nets: Nets, batch, cfg: Config, *, train: bool,
     """Audio-visual symmetric double forward (reference main.py:113-148):
     pass 1 with the visual order reversed against the reversed GT, pass 2
     forward; ``err = (err1 + err0) / 2 + match_weight * (match1 +
-    match0)``.  The slot-swap arguments are unused (no audio-only fusion
+    match0)``.  The visual stream is each source's frames through the
+    frame net, or under ``fusion_type CoLoc_ClipAtt`` its clip through the
+    motion net.  The slot-swap arguments are unused (no audio-only fusion
     here) and accepted for the common signature."""
     batch = _start(nets, batch, train)
     prep = _prepare(batch, cfg)
     N = cfg.num_mix
-    frames = batch["frames"]
+    if cfg.fusion_type == "CoLoc_ClipAtt":
+        vis_features, stream = _motion_features, batch["clips"]
+    else:
+        vis_features, stream = _frame_features, batch["frames"]
     remat = train and cfg.remat
-    feats = [_frame_features(nets, frames[:, n], cfg, remat)
-             for n in range(N)]
+    feats = [vis_features(nets, stream[:, n], cfg, remat) for n in range(N)]
 
     def one_pass(vis_list, gt):
         v = torch.stack(vis_list)                       # [C, B, h, w, Dv]

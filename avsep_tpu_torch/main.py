@@ -48,6 +48,8 @@ def build_loaders(cfg: Config, val_only: bool = False):
                             for p in cfg.list_val])
     val_loader = cls(val_ds, cfg.batch_size, shuffle=False, num_workers=4,
                      seed=cfg.seed)
+    print("Frame decode: {} (--frame_decode {})".format(
+        val_ds.datasets[0].frame_route, cfg.frame_decode))
     if val_only:
         return None, None, val_loader
     av_ds = ConcatDataset([MusicMixDataset(p, cfg, split="train")

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from avsep_tpu_torch.models.motion import ResNet3dFastOnly
 from avsep_tpu_torch.models.resnet import FrameEncoder, TinyConvEncoder
 from avsep_tpu_torch.models.unet import AudioUnet
 
@@ -47,8 +48,8 @@ _UNET_DOWNS = {"unet5": 5, "unet6": 6, "unet7": 7}
 
 
 class ModelBuilder:
-    """Builds the sound U-Net and the frame encoder from config strings
-    (reference models/__init__.py:31-132)."""
+    """Builds the sound U-Net, the frame encoder and the motion net from
+    config strings (reference models/__init__.py:31-132)."""
 
     @staticmethod
     def build_sound(arch: str = "unet5", fc_dim: int = 64,
@@ -76,3 +77,9 @@ class ModelBuilder:
             return TinyConvEncoder(fc_dim=fc_dim, pool_type=pool_type,
                                    dtype=dtype)
         raise ValueError("Architecture undefined!")
+
+    @staticmethod
+    def build_motion(dtype: torch.dtype = torch.float32) -> ResNet3dFastOnly:
+        """The SlowFast fast pathway at base 8, ``[3, 4, 6, 3]``
+        (reference models/__init__.py:94-118)."""
+        return ResNet3dFastOnly(dtype=dtype)

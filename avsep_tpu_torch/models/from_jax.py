@@ -5,7 +5,8 @@ path maps one to one onto a ``state_dict`` key and the conversion only
 renames leaves and transposes kernels (the layouts of
 ``avsep_tpu/models/torch_export.py``):
 
-* conv ``kernel [kh, kw, in, out]`` -> ``weight [out, in, kh, kw]``;
+* conv ``kernel [kh, kw, in, out]`` -> ``weight [out, in, kh, kw]``, and
+  the motion net's ``[kd, kh, kw, in, out]`` -> ``[out, in, kd, kh, kw]``;
 * conv ``bias`` -> ``bias``;
 * BatchNorm ``scale`` / ``bias`` (params) and ``mean`` / ``var``
   (batch_stats) -> ``weight`` / ``bias`` / ``running_mean`` /
@@ -47,10 +48,11 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping
     for path, leaf in _leaves(params):
         mod, name = path[:-1], path[-1]
         if name == "kernel":
-            if leaf.ndim != 4:
-                raise ValueError(f"{'.'.join(path)}: expected a 4-D conv "
-                                 f"kernel, got shape {leaf.shape}")
-            put(mod, "weight", leaf.transpose(3, 2, 0, 1))
+            if leaf.ndim not in (4, 5):
+                raise ValueError(f"{'.'.join(path)}: expected a 4-D or 5-D "
+                                 f"conv kernel, got shape {leaf.shape}")
+            n = leaf.ndim
+            put(mod, "weight", leaf.transpose(n - 1, n - 2, *range(n - 2)))
         elif name == "scale":
             put(mod, "weight", leaf)
         elif name == "bias":
@@ -71,8 +73,12 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping
 
 def load_from_jax(nets, params: Mapping, batch_stats: Mapping) -> None:
     """Load the JAX package's ``{"sound": ..., "frame": ...}`` params and
-    batch_stats into the port's ``Nets``, strictly."""
-    for key in ("sound", "frame"):
+    batch_stats, and ``"motion"`` when ``nets`` has a motion net, into the
+    port's ``Nets``, strictly."""
+    keys = ("sound", "frame")
+    if getattr(nets, "motion", None) is not None:
+        keys += ("motion",)
+    for key in keys:
         module = getattr(nets, key)
         sd = state_dict_from_jax(params[key], batch_stats[key])
         module.load_state_dict(sd, strict=True)

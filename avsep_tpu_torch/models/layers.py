@@ -15,12 +15,13 @@ CPU, so the same seed gives the same weights on every device.
 :class:`BatchNorm` is the one BatchNorm of the port's nets (U-Net, ResNet,
 tiny encoder): its train mode updates the running statistics as Flax does.
 
-Compute dtype (Flax's ``dtype``).  :class:`Conv2d` and :class:`BatchNorm`
-take ``compute_dtype``; their parameters and buffers stay float32.  Under
-bfloat16 a conv casts its input, weight and bias to bfloat16 inside
-``forward`` (the gradients reach the float32 parameters through the cast),
-and a BatchNorm takes its batch statistics and normalizes in float32
-(Flax's ``force_float32_reductions``), then returns bfloat16.
+Compute dtype (Flax's ``dtype``).  :class:`Conv2d`, :class:`Conv3d` and
+:class:`BatchNorm` take ``compute_dtype``; their parameters and buffers
+stay float32.  Under bfloat16 a conv casts its input, weight and bias to
+bfloat16 inside ``forward`` (the gradients reach the float32 parameters
+through the cast), and a BatchNorm takes its batch statistics and
+normalizes in float32 (Flax's ``force_float32_reductions``), then returns
+bfloat16.
 """
 
 from __future__ import annotations
@@ -68,8 +69,9 @@ def torch_conv_bias_init_(t: torch.Tensor, fan_in: int,
 @torch.no_grad()
 def he_normal_init_(t: torch.Tensor, generator: torch.Generator) -> None:
     """Variance scaling 2.0 on fan_out, normal: the JAX package's ResNet
-    conv init.  ``t`` is a conv weight ``[out, in, kh, kw]``."""
-    fan_out = t.shape[0] * t.shape[2] * t.shape[3]
+    and motion-net conv init.  ``t`` is a conv weight ``[out, in, *k]``
+    (2-D or 3-D kernel); fan_out is ``out`` times the kernel's size."""
+    fan_out = t.shape[0] * math.prod(t.shape[2:])
     t.copy_(math.sqrt(2.0 / fan_out) * _draw(t.shape, generator, "normal"))
 
 
@@ -109,6 +111,27 @@ class Conv2d(nn.Conv2d):
         if self.bias is None:
             return y
         return y + self.bias.to(d)[:, None, None]
+
+
+class Conv3d(nn.Conv3d):
+    """``nn.Conv3d`` with :class:`Conv2d`'s compute-dtype semantics: the
+    input, the weight and the bias are cast to ``compute_dtype`` inside
+    :meth:`forward`, and below float32 the bias is added to the rounded
+    conv output."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32,
+                 **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.compute_dtype
+        if d == torch.float32:
+            return super().forward(x)
+        y = self._conv_forward(x.to(d), self.weight.to(d), None)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(d)[:, None, None, None]
 
 
 class ConvDown(nn.Module):
@@ -164,7 +187,9 @@ def running_stats_frozen():
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """NCHW BatchNorm with Flax ``nn.BatchNorm``'s training semantics.
+    """BatchNorm with Flax ``nn.BatchNorm``'s training semantics, over the
+    channels of dimension 1: NCHW (the U-Net, the ResNets) or NCDHW (the
+    motion net); the statistics are over every other dimension.
 
     Eval mode normalizes with the running statistics, as ``nn.BatchNorm2d``.
     Train mode normalizes with the batch statistics and keeps the gradient

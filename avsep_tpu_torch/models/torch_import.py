@@ -14,6 +14,12 @@ conversion only renames keys onto the port's module names:
   raw torchvision ``resnet18`` dict (``conv1.weight``...); a 4-D ``fc`` is
   the reference's 3x3 projection, a 2-D one torchvision's classifier
   (dropped).
+* Motion net: an mmaction SlowFast fast pathway (``conv1.conv``,
+  ``conv1.bn``, ``layer{i}.{j}.conv{k}.conv`` / ``.bn``,
+  ``layer{i}.{j}.downsample.conv`` / ``.bn``), its keys raw
+  (``backbone.fast_path.``), stripped of ``backbone.`` (``fast_path.``)
+  or bare; ``cls_head`` and ``slow_path`` are dropped (reference
+  models/__init__.py:114-117).
 * SoP++ synthesizer (``models/synthesizer_net.py:6-70``): ``scale`` (for
   ``InnerProd``) and ``bias`` under their own names.  The SoP++ basis
   U-Net (``SoP++/audio_net.py``) has the U-Net's keys.
@@ -98,6 +104,36 @@ def resnet_state_dict_from_torch(sd: Mapping, with_fc: bool = True
     if with_fc and "fc.weight" in sd and sd["fc.weight"].dim() == 4:
         out["fc.weight"] = sd["fc.weight"]
         out["fc.bias"] = sd["fc.bias"]
+    return out
+
+
+def motion_state_dict_from_torch(sd: Mapping) -> Dict[str, torch.Tensor]:
+    """An mmaction fast-pathway ``state_dict``, in any of its three key
+    layouts, -> the port's
+    :class:`~avsep_tpu_torch.models.motion.ResNet3dFastOnly` keys (the
+    JAX package's ``motion_from_torch``)."""
+    norm = {}
+    for k, v in sd.items():
+        if "cls_head" in k or "slow_path" in k:
+            continue
+        for prefix in ("backbone.", "fast_path."):
+            if k.startswith(prefix):
+                k = k[len(prefix):]
+        norm[k] = v
+    out: Dict[str, torch.Tensor] = {"conv1.weight": norm["conv1.conv.weight"]}
+    _bn(out, "bn1", norm, "conv1.bn")
+    for li, n_blocks in enumerate((3, 4, 6, 3)):
+        for bi in range(n_blocks):
+            src, dst = f"layer{li + 1}.{bi}", f"layer{li + 1}_{bi}"
+            for ci in (1, 2, 3):
+                out[f"{dst}.conv{ci}.weight"] = norm[
+                    f"{src}.conv{ci}.conv.weight"]
+                _bn(out, f"{dst}.bn{ci}", norm, f"{src}.conv{ci}.bn")
+            if f"{src}.downsample.conv.weight" in norm:
+                out[f"{dst}.downsample_conv.weight"] = norm[
+                    f"{src}.downsample.conv.weight"]
+                _bn(out, f"{dst}.downsample_bn", norm,
+                    f"{src}.downsample.bn")
     return out
 
 

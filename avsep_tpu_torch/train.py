@@ -6,7 +6,8 @@ Port of ``avsep_tpu/train.py`` (reference ``main.py:536-601``):
   ``create_optimizer``, main.py:536-547): group ``sound`` holds ``sound.*``
   and ``frame.fc.*`` at ``lr_sound``; group ``frame`` holds
   ``frame.features.*`` at ``lr_frame``, or gets a zero update and no state
-  under ``fix_vis``.  The SoP++ nets add group ``synth``
+  under ``fix_vis``; under ``--load_clips`` group ``motion`` holds
+  ``motion.*`` at ``lr_motion``.  The SoP++ nets add group ``synth``
   (``synthesizer.*``, at ``lr_synthesizer``; reference SoP++/main.py:743-756).
 * One step = one forward (AV or AO), one backward, one SGD update
   (reference ``train_step``, main.py:557-569); ``batch_scheduler`` says
@@ -17,13 +18,17 @@ because it reproduces the JAX package's optax chain, per group:
 ``buf = (g + weight_decay * p) + beta1 * buf``, then ``p -= lr * buf``,
 where ``lr = base * 0.1 ** #{s in lr_steps : count >= s}`` is read at the
 group's update count *before* the update (``optax.piecewise_constant_
-schedule``).  In an AO step every group but ``frame`` advances: the frame
-net's parameters (``frame.features`` and ``frame.fc``) get a zero update and
-the ``frame`` group's count and buffers stay as they were, so its schedule
-counts AV steps only; ``frame.fc`` rides group ``sound``, so its buffer
-still becomes ``beta1 * buf + weight_decay * p`` while its value stays
-frozen (the JAX package's "residual inexactness", train.py:160-163,
-reproduced on purpose).
+schedule``).  A step leaves the nets its forward does not run where they
+are, with the groups of the same names (the JAX package's live nets,
+``avsep_tpu/train.py:150-177``): an AO step ``frame`` and ``motion``; an
+AV step ``motion``, or ``frame`` under ``fusion_type CoLoc_ClipAtt``,
+whose AV step runs the motion net in its place.  A frozen net's
+parameters (for the frame net ``frame.features`` and ``frame.fc``) get a
+zero update and its group's count and buffers stay as they were, so the
+``frame`` group's schedule counts the steps that run the frame net only;
+``frame.fc`` rides group ``sound``, so its buffer still becomes ``beta1 *
+buf + weight_decay * p`` while its value stays frozen (the JAX package's
+"residual inexactness", train.py:160-163, reproduced on purpose).
 
 The state is updated in place: the nets' parameters and BatchNorm buffers,
 and the momentum buffers, are the tensors of the state passed in.
@@ -95,13 +100,13 @@ class TrainState:
 
 
 def modules(nets) -> List[Tuple[str, torch.nn.Module]]:
-    """The nets by field name: ``sound``, ``frame``, and ``synthesizer``
-    for the SoP++ nets."""
-    return list(nets._asdict().items())
+    """The nets by field name: ``sound``, ``frame``, ``motion`` under
+    ``--load_clips``, and ``synthesizer`` for the SoP++ nets."""
+    return [(k, v) for k, v in nets._asdict().items() if v is not None]
 
 
 def named_parameters(nets) -> Iterator[Tuple[str, torch.nn.Parameter]]:
-    """The nets' parameters, named ``sound.*``, ``frame.*``,
+    """The nets' parameters, named ``sound.*``, ``frame.*``, ``motion.*``,
     ``synthesizer.*``."""
     for net, module in modules(nets):
         for name, p in module.named_parameters():
@@ -110,10 +115,13 @@ def named_parameters(nets) -> Iterator[Tuple[str, torch.nn.Parameter]]:
 
 def param_group(name: str) -> str:
     """``sound.*`` and ``frame.fc.*`` -> ``"sound"``; ``synthesizer.*`` ->
-    ``"synth"``; ``frame.features.*`` -> ``"frame"`` (reference
-    create_optimizer, main.py:536-547; SoP++/main.py:743-756)."""
+    ``"synth"``; ``frame.features.*`` -> ``"frame"``; ``motion.*`` ->
+    ``"motion"`` (reference create_optimizer, main.py:536-547;
+    SoP++/main.py:743-756)."""
     if name.startswith("sound.") or name.startswith("frame.fc."):
         return "sound"
+    if name.startswith("motion."):
+        return "motion"
     if name.startswith("synthesizer."):
         return "synth"
     if name.startswith("frame.features."):
@@ -134,15 +142,12 @@ def lr_at(base: float, lr_steps, count: int) -> float:
 
 def _base_lr(cfg: Config, group: str) -> float:
     return {"sound": cfg.lr_sound, "synth": cfg.lr_synthesizer,
-            "frame": cfg.lr_frame}[group]
+            "frame": cfg.lr_frame, "motion": cfg.lr_motion}[group]
 
 
 def init_opt_state(cfg: Config, nets) -> Dict[str, Optional[GroupState]]:
     """Count 0 and zero momentum buffers for every group of the nets'
     parameters; None for ``frame`` under ``fix_vis``."""
-    if cfg.load_clips:
-        raise NotImplementedError("the motion group (--load_clips) is not "
-                                  f"ported yet ({engine.MOTION_ITEM})")
     state: Dict[str, Optional[GroupState]] = {}
     for name, p in named_parameters(nets):
         g = param_group(name)
@@ -176,12 +181,20 @@ def init_state(cfg: Config, nets: Nets, generator: torch.Generator,
     return TrainState(0, nets, init_opt_state(cfg, nets))
 
 
-def _groups_of(state: TrainState, use_vis: bool) -> List[str]:
-    """The groups that advance in a step: every group with state in an AV
-    step (``frame`` has none under ``fix_vis``), all but ``frame`` in an
-    AO step."""
+def frozen_nets(cfg: Config, use_vis: bool) -> Tuple[str, ...]:
+    """The nets an AV (``use_vis``) or AO step leaves where they are, with
+    their groups: those its forward does not run."""
+    if not use_vis:
+        return ("frame", "motion")
+    return ("frame",) if cfg.fusion_type == "CoLoc_ClipAtt" else ("motion",)
+
+
+def _groups_of(cfg: Config, state: TrainState, use_vis: bool) -> List[str]:
+    """The groups that advance in a step: every group with state (``frame``
+    has none under ``fix_vis``) but those of :func:`frozen_nets`."""
+    frozen = frozen_nets(cfg, use_vis)
     return [g for g, s in state.opt_state.items()
-            if s is not None and (use_vis or g != "frame")]
+            if s is not None and g not in frozen]
 
 
 @torch.no_grad()
@@ -189,9 +202,11 @@ def _sgd_update(cfg: Config, state: TrainState, params: Dict, grads: Dict,
                 use_vis: bool) -> None:
     """One SGD update of the groups that advance, each operation over a
     whole group at once (``torch._foreach_*``), rounded as optax rounds it:
-    ``u = g + wd * p``, ``buf = beta1 * buf + u``, ``p += (-lr) * buf``."""
+    ``u = g + wd * p``, ``buf = beta1 * buf + u``, ``p += (-lr) * buf``;
+    the parameters of the frozen nets stay where they are."""
     wd, beta1 = cfg.weight_decay, cfg.beta1
-    for g in _groups_of(state, use_vis):
+    frozen = frozen_nets(cfg, use_vis)
+    for g in _groups_of(cfg, state, use_vis):
         gs = state.opt_state[g]
         neg_lr = -lr_at(_base_lr(cfg, g), cfg.lr_steps, gs.count)
         names = list(gs.momentum)
@@ -204,9 +219,9 @@ def _sgd_update(cfg: Config, state: TrainState, params: Dict, grads: Dict,
                                 [grads[names[i]] for i in with_grad])
         torch._foreach_mul_(bufs, beta1)
         torch._foreach_add_(bufs, us)
-        # an AO step leaves the whole frame net where it is
+        # frame.fc rides group sound but stays with its frozen net
         moving = [i for i, n in enumerate(names)
-                  if use_vis or not n.startswith("frame.")]
+                  if n.split(".", 1)[0] not in frozen]
         torch._foreach_add_([params[names[i]] for i in moving],
                             torch._foreach_mul([bufs[i] for i in moving],
                                                neg_lr))
@@ -218,7 +233,7 @@ def apply_gradients(cfg: Config, state: TrainState, err: torch.Tensor,
     """The gradient of ``err`` for the parameters of the groups that
     advance, then one SGD update of those groups, in place; ``step`` + 1."""
     params = dict(named_parameters(state.nets))
-    groups = _groups_of(state, use_vis)
+    groups = _groups_of(cfg, state, use_vis)
     live = [n for n in params if param_group(n) in groups]
     grads = torch.autograd.grad(err, [params[n] for n in live],
                                 allow_unused=True)

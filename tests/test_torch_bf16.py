@@ -121,7 +121,7 @@ def test_bf16_forward_matches_jax_bf16(frame_arch, use_vis):
     err, out = engine.forward(pnets, batch, cfg.replace(dtype="bfloat16"),
                               use_vis, train=True,
                               swap_uniforms=None if use_vis else u)
-    assert all(p.dtype == torch.float32 for net in pnets
+    assert all(p.dtype == torch.float32 for _, net in train.modules(pnets)
                for p in net.parameters())
     assert out["pred_masks"].dtype == torch.float32
     assert out["mag_mix"].dtype == torch.float32
@@ -298,7 +298,8 @@ def test_dtype_flag_builds_bf16_nets_with_float32_state():
     assert nets.frame.fc.compute_dtype == torch.bfloat16
     assert nets.sound.up_bn1.bn.compute_dtype == torch.bfloat16
     nets32 = engine.build_nets(cfg.replace(dtype="float32"), device="cpu")
-    for n16, n32 in zip(nets, nets32):
+    for (_, n16), (_, n32) in zip(train.modules(nets),
+                                  train.modules(nets32)):
         sd = n16.state_dict()
         assert all(v.dtype in (torch.float32, torch.int64)
                    for v in sd.values())

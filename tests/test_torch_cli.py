@@ -73,13 +73,20 @@ def test_dtype_and_remat_parse_as_the_jax_package(argv):
     (["--dist_nprocs", "2"], "parallel/"),
     (["--dist_procid", "1"], "parallel/"),
     (["--dist_data", "shard"], "parallel/"),
-    (["--frame_decode", "native"], "data/native.py"),
-    (["--frame_decode", "fast"], "data/native.py"),
 ])
 def test_unported_flags_raise_naming_the_roadmap_item(argv, item):
     with pytest.raises(NotImplementedError, match=re.escape(item)):
         parse_args(argv)
     jparse_args(argv)                      # the JAX package takes them
+
+
+@pytest.mark.parametrize("decode", ["native", "fast"])
+def test_frame_decode_parses_as_the_jax_package(decode):
+    """``--frame_decode native`` and ``fast`` are ported (data/native.py):
+    they parse to what the JAX package parses, and raise nothing."""
+    argv = ["--frame_decode", decode]
+    assert parse_args(argv).frame_decode == jparse_args(argv).frame_decode \
+        == decode
 
 
 def test_ported_flags_at_non_defaults():

@@ -2,10 +2,10 @@
 package's (avsep_tpu/data/) on the synthetic manifest of
 tests/test_dataset.py: every ``__getitem__`` bit for bit (audios, mixture,
 uint8 frames, ids, classes, infos) for ``train`` and ``val``, the loaders'
-batch order, and the int16 wire's arrays.  The JAX dataset decodes frames
-with PIL (``frame_decode pil``) and with its C++ decode where that builds
-(``auto``, which it checks against PIL before use); the port decodes with
-PIL.  Also: the data modules import in a process where ``torch`` cannot
+batch order, and the int16 wire's arrays.  Both datasets decode frames
+with PIL (``frame_decode pil``) and with their C++ decode where that builds
+(``auto``, which each checks against PIL before use; the port's routes are
+held against each other in tests/test_torch_native.py).  Also: the data modules import in a process where ``torch`` cannot
 be imported, so the loaders' worker processes stay light."""
 
 import dataclasses
@@ -75,11 +75,20 @@ def test_random_sample_and_vis1_options_equal_jax(manifest):  # noqa: F811
 
 
 def test_read_manifest_and_unported_decode(manifest):  # noqa: F811
+    """Every decode the JAX package takes is ported: ``native`` and
+    ``fast`` take the C++ route where its library loads (the JAX dataset's
+    ``native`` samples bit for bit), and an unknown decode raises."""
     assert pds.read_manifest(manifest) == jds.read_manifest(manifest)
-    _, cfg = configs()
+    jcfg, cfg = configs()
     for fd in ("native", "fast"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            pds.MusicMixDataset(manifest, cfg.replace(frame_decode=fd))
+        ds = pds.MusicMixDataset(manifest, cfg.replace(frame_decode=fd))
+        assert ds.frame_route == fd
+    want = jds.MusicMixDataset(
+        manifest, dataclasses.replace(jcfg, frame_decode="native"))
+    got = pds.MusicMixDataset(manifest, cfg.replace(frame_decode="native"))
+    assert_samples_equal(got[1], want[1])
+    with pytest.raises(ValueError, match="frame_decode"):
+        pds.MusicMixDataset(manifest, cfg.replace(frame_decode="cv2"))
 
 
 def test_loaders_yield_jax_batches_in_order(manifest):  # noqa: F811
@@ -162,7 +171,8 @@ def test_data_modules_import_without_torch():
     mods = ["avsep_tpu_torch.config", "avsep_tpu_torch.data.audio_io",
             "avsep_tpu_torch.data.video_transforms",
             "avsep_tpu_torch.data.dataset", "avsep_tpu_torch.data.loader",
-            "avsep_tpu_torch.data.wire", "avsep_tpu_torch.main",
+            "avsep_tpu_torch.data.wire", "avsep_tpu_torch.data.native",
+            "avsep_tpu_torch.main",
             "avsep_tpu_torch.utils.meters",
             "avsep_tpu_torch.utils.media", "avsep_tpu_torch.utils.viz",
             "avsep_tpu_torch.check_exp", "avsep_tpu_torch.sop_main"]

@@ -181,13 +181,19 @@ def test_init_params_is_seeded_and_follows_the_reference_init():
 
 
 def test_build_nets_rejects_what_this_slice_leaves_out():
+    """The motion branch is ported: ``load_clips`` builds the motion net,
+    ``fusion_type CoLoc_ClipAtt`` without it raises ``ValueError`` as the
+    JAX package's ``build_nets`` does."""
     _, cfg = _configs()
     engine.build_nets(cfg.replace(fusion_type="MixVis"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.build_nets(cfg.replace(load_clips=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert engine.build_nets(cfg, device="cpu").motion is None
+    nets = engine.build_nets(cfg.replace(load_clips=True), device="cpu")
+    assert nets.motion is not None and not nets.motion.training
+    with pytest.raises(ValueError, match="load_clips"):
         engine.build_nets(cfg.replace(fusion_type="CoLoc_ClipAtt"),
                           device="cpu")
+    with pytest.raises(ValueError, match="load_clips"):
+        jax_build_nets(_configs(fusion_type="CoLoc_ClipAtt")[0])
 
 
 def test_separate_mixvis_one_stream_matches_jax(nets):

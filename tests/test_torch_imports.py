@@ -41,7 +41,8 @@ def test_port_and_chip_smoke_import_without_jax():
                  "evaluate", "main", "check_exp", "data.dataset",
                  "data.loader", "utils.media", "serve", "separate_cli",
                  "inference", "sop_engine", "sop_main", "models.sop",
-                 "models.synthesizer", "models.torch_export"):
+                 "models.synthesizer", "models.torch_export",
+                 "models.motion", "data.native"):
         assert f"avsep_tpu_torch.{name}" in mods
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _PROBE, *mods], cwd=REPO,

@@ -257,8 +257,9 @@ def test_param_groups_follow_the_reference():
     assert groups["frame.features.Conv_0.weight"] == "frame"
     assert all(g == "sound" for n, g in groups.items()
                if n.startswith("sound."))
+    assert train.param_group("motion.layer1_0.conv1.weight") == "motion"
     with pytest.raises(ValueError):
-        train.param_group("motion.conv.weight")
+        train.param_group("depth.conv.weight")
 
 
 def test_pth_round_trip_equals_from_jax(tmp_path):
@@ -373,8 +374,15 @@ def test_what_this_slice_leaves_out_raises(monkeypatch):
     _, m = train.make_train_step(remat, nets, True, device="cpu")(
         state, make_batch(30))
     assert np.isfinite(m["err"].item())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        train.init_opt_state(cfg.replace(load_clips=True), nets)
+    # the motion group is ported (tests/test_torch_clipatt.py): a motion
+    # net gets its group at lr_motion
+    clip_nets = nets._replace(motion=engine.build_nets(
+        cfg.replace(load_clips=True), device="cpu").motion)
+    groups = train.init_opt_state(cfg.replace(load_clips=True), clip_nets)
+    assert set(groups) == {"sound", "frame", "motion"}
+    assert set(groups["motion"].momentum) == {
+        f"motion.{k}" for k, _ in clip_nets.motion.named_parameters()}
+    assert train._base_lr(cfg, "motion") == cfg.lr_motion
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.init_state(cfg, nets, torch.Generator().manual_seed(0))
