@@ -4,9 +4,13 @@ Port of ``avsep_tpu/checkpoint.py``.  The reference saves per-net
 ``state_dict`` files plus a history (reference ``main.py:506-533``) and
 loses the optimizer's momentum and schedule position on resume; here the
 step, both nets' parameters and BatchNorm buffers, and every group's count
-and momentum buffers round-trip (``TrainState.state_dict``).  The port runs
-on one GPU, so there is no multi-host barrier.  Files, under ``ckpt_dir``:
-``state_{tag}.pt`` and ``history_latest.json``.
+and momentum buffers round-trip (``TrainState.state_dict``).  Files, under
+``ckpt_dir``: ``state_{tag}.pt`` and ``history_latest.json``.
+
+Under a process group (``parallel/distributed.py``) the ranks hold equal
+states, so the primary rank writes and the others wait at a barrier until
+the files are there; every rank restores, and the caller broadcasts rank
+0's state (``distributed.broadcast_state``).
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from avsep_tpu_torch.parallel import distributed as pdist
 from avsep_tpu_torch.train import TrainState
 
 
@@ -27,11 +32,13 @@ def _state_path(ckpt_dir: str, tag: str) -> str:
 def save_checkpoint(ckpt_dir: str, state: TrainState, history: dict,
                     tag: str = "latest") -> None:
     """Write the state as ``state_{tag}.pt`` and the history as
-    ``history_latest.json``."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    torch.save(state.state_dict(), _state_path(ckpt_dir, tag))
-    with open(os.path.join(ckpt_dir, "history_latest.json"), "w") as f:
-        json.dump(history, f)
+    ``history_latest.json``, on the primary rank; then a barrier."""
+    if pdist.is_primary():
+        os.makedirs(ckpt_dir, exist_ok=True)
+        torch.save(state.state_dict(), _state_path(ckpt_dir, tag))
+        with open(os.path.join(ckpt_dir, "history_latest.json"), "w") as f:
+            json.dump(history, f)
+    pdist.barrier()
 
 
 def restore_checkpoint(ckpt_dir: str, template: TrainState,

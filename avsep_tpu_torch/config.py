@@ -3,10 +3,11 @@
 The same flag names and defaults as the reference's ``arguments.py``
 (reference ``arguments.py:6-169``), as a frozen dataclass.  This is the
 port's own copy of ``avsep_tpu/config.py``: the port imports nothing of the
-JAX package.  It leaves out the fields of features the port lacks (the
-Pallas switch, the device mesh, multi-host bring-up): on a CUDA tensor the
-port always runs its kernels, on a CPU tensor their plain versions, on one
-device.  ``dtype`` is the nets' compute dtype, ``float32`` or ``bfloat16``
+JAX package.  It leaves out the Pallas switch: on a CUDA tensor the port
+always runs its kernels, on a CPU tensor their plain versions.  The data
+mesh and the multi-process fields (``mesh_shape``, ``data_axis``,
+``dist_*``) drive ``parallel/``, one process per card.  ``dtype`` is the
+nets' compute dtype, ``float32`` or ``bfloat16``
 (Flax's ``dtype``: parameters, running statistics and momentum stay
 float32).
 
@@ -148,6 +149,18 @@ class Config:
     profile_dir: str = ""
     profile_start: int = 10
     profile_steps: int = 5
+    # the data mesh (parallel/mesh.py): its axis name and, if given, its
+    # width (one axis; one position per process, each on one card)
+    data_axis: str = "data"
+    mesh_shape: Tuple[int, ...] = ()
+    # data parallelism over processes (parallel/distributed.py):
+    # "host:port" of process 0, the number of processes, this one's id,
+    # and the host data mode: "replicate" (every process loads the global
+    # batch and keeps its rows) or "shard" (disjoint per-process samples)
+    dist_coordinator: str = ""
+    dist_nprocs: int = 1
+    dist_procid: int = 0
+    dist_data: str = "replicate"
 
     # -------------------------------------------------------------- helpers
     @property
@@ -183,7 +196,6 @@ FLAGSHIP = Config(arch_sound="unet7", num_channels=2, vis_channels=256,
 DTYPES = ("float32", "bfloat16")
 
 # ROADMAP.md, where each feature the port lacks waits
-MESH_ITEM = "ROADMAP.md Queue 1, 'parallel/' (torch.distributed DDP)"
 KERNEL_SWITCH_ITEM = ("ROADMAP.md, 'Flags that raise' (the port runs its "
                       "kernels on every CUDA tensor; nothing switches them)")
 
@@ -191,12 +203,6 @@ KERNEL_SWITCH_ITEM = ("ROADMAP.md, 'Flags that raise' (the port runs its "
 # default (the only value the port accepts) and the ROADMAP.md item
 UNPORTED_FLAGS = {
     "use_pallas": (False, KERNEL_SWITCH_ITEM),
-    "data_axis": ("data", MESH_ITEM),
-    "mesh_shape": ((), MESH_ITEM),
-    "dist_coordinator": ("", MESH_ITEM),
-    "dist_nprocs": (1, MESH_ITEM),
-    "dist_procid": (0, MESH_ITEM),
-    "dist_data": ("replicate", MESH_ITEM),
 }
 FRAME_DECODES = ("auto", "pil", "native", "fast")
 

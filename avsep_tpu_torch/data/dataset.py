@@ -50,6 +50,14 @@ MUSIC11_CLASSES = [
     "saxophone", "trumpet", "tuba", "violin", "xylophone"]
 
 
+# The reference ships a compiled-only MUSICAODataset (dataset/__pycache__/
+# music_ao.cpython-37.pyc, imported by SoP++/main.py:30) whose method surface
+# matches MUSICMixDataset (SURVEY.md section 2.1); the audio-only loaders
+# here use the same class.
+def MusicAODataset(*args, **kwargs):
+    return MusicMixDataset(*args, **kwargs)
+
+
 def read_manifest(csv_path: str) -> List[List[str]]:
     """Rows with >= 2 columns (reference dataset/base.py:61-70)."""
     rows = []

@@ -11,8 +11,8 @@ thread.
 
 This module imports numpy and the standard library, never torch: it is the
 forkserver's preload for :class:`ProcessBatchLoader`, whose workers stay
-light numpy + PIL processes.  The multi-host ``ShardDataset`` waits for the
-DDP item of ``ROADMAP.md`` Queue 1.
+light numpy + PIL processes.  ``ShardDataset`` is the disjoint per-rank
+view behind ``--dist_data shard`` (``parallel/distributed.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +38,28 @@ class ConcatDataset:
     def __getitem__(self, i: int):
         k = int(np.searchsorted(self.offsets, i, side="right") - 1)
         return self.datasets[k][i - int(self.offsets[k])]
+
+
+class ShardDataset:
+    """Disjoint per-process view of a map-style dataset (``dist_data=
+    shard``, parallel/distributed.py): process ``index`` of ``count`` owns
+    global samples ``index, index+count, ...``, truncated to ``n // count``
+    so every process sees the same length: the ranks stay in lockstep on
+    the collective train steps, and a global batch never holds a sample
+    twice."""
+
+    def __init__(self, dataset, index: int, count: int):
+        if not 0 <= index < count:
+            raise ValueError(f"shard {index} of {count}")
+        self.dataset = dataset
+        self.index = index
+        self.count = count
+
+    def __len__(self):
+        return len(self.dataset) // self.count
+
+    def __getitem__(self, i: int):
+        return self.dataset[self.index + i * self.count]
 
 
 def collate(samples: List[Dict]) -> Dict:

@@ -37,6 +37,23 @@ def resize_shorter(frames: List[Image.Image], size: int) -> List[Image.Image]:
     return out
 
 
+def pad_img(frames: List[Image.Image], pad: int, size: int,
+            mode: str = "constant") -> List[Image.Image]:
+    """Pad each frame to at least ``size`` (reference
+    video_transforms.PadImg, :27-45; used by the demo's vis_aug)."""
+    out = []
+    for img in frames:
+        w, h = img.size
+        if w >= size and h >= size:
+            out.append(img)
+            continue
+        nw, nh = max(w + 2 * pad, size), max(h + 2 * pad, size)
+        canvas = Image.new("RGB", (nw, nh), (0, 0, 0))
+        canvas.paste(img, ((nw - w) // 2, (nh - h) // 2))
+        out.append(canvas)
+    return out
+
+
 def center_crop(frames: List[Image.Image], size: int) -> List[Image.Image]:
     out = []
     for img in frames:

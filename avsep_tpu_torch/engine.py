@@ -63,6 +63,7 @@ from avsep_tpu_torch.models.layers import running_stats_frozen
 from avsep_tpu_torch.ops.prepare import PreparedBatch, prepare
 from avsep_tpu_torch.ops.stft import istft, stft_magphase
 from avsep_tpu_torch.ops.warp import unwarp_mask
+from avsep_tpu_torch.parallel import distributed as pdist
 
 # cfg.dtype -> the nets' compute dtype
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -89,14 +90,19 @@ def full_float32() -> None:
 
 def resolve_device(device=None) -> torch.device:
     """``device`` as a ``torch.device``; None means the GPU, and raises when
-    there is none."""
+    there is none.  Under a process group, None and a bare ``cuda`` mean
+    the rank's own card, ``cuda:{rank % device_count}``
+    (``parallel/distributed.py``)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run on "
                 "the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+        device = "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None and pdist.active():
+        return torch.device("cuda", pdist.local_device_index())
+    return dev
 
 
 def nets_device(nets: Nets, device=None) -> torch.device:
@@ -107,7 +113,8 @@ def nets_device(nets: Nets, device=None) -> torch.device:
         if net is None:
             continue
         for name, p in net.named_parameters():
-            if p.device.type != dev.type:
+            if p.device.type != dev.type or (
+                    dev.index is not None and p.device.index != dev.index):
                 raise ValueError(f"{net_name}.{name} lies on {p.device}, "
                                  f"not {dev}")
     return dev
@@ -235,18 +242,24 @@ def _to_device(x, dev: torch.device) -> torch.Tensor:
     return x.to(dev)
 
 
-def to_device(batch: Dict, device: torch.device, drop=(), cfg=None
-              ) -> Dict[str, torch.Tensor]:
+def to_device(batch: Dict, device: torch.device, drop=(), cfg=None,
+              mode: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """The arrays of a host batch that a step reads, on ``device``:
     ``audio_mix`` is rebuilt there from the sources (:func:`audio_mix_of`),
     ``class`` and the string fields are never read, ``drop`` names the
     visual streams the branch does not read; ``cfg.audio_wire`` int16
-    re-encodes the sources (``data/wire.py``).  A copy to a GPU goes from
-    pinned memory without blocking the host, ordered on the current
-    stream."""
+    re-encodes the sources (``data/wire.py``).  Under a process group only
+    the rank's rows go (``distributed.device_put_global``): ``mode``
+    ``replicate`` takes the rank's block of a global batch, ``shard`` the
+    whole batch; it defaults to ``cfg.dist_data`` (``replicate`` without a
+    ``cfg``).  A copy to a GPU goes from pinned memory without blocking
+    the host, ordered on the current stream."""
     skip = ("class", "audio_mix") + tuple(drop)
     host = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)
             and v.dtype != object and k not in skip}
+    if mode is None:
+        mode = cfg.dist_data if cfg is not None else "replicate"
+    host = pdist.device_put_global(host, mode)
     if cfg is not None:
         host = encode_audio_wire(host, cfg)
     pinned = device.type == "cuda"

@@ -49,6 +49,7 @@ from avsep_tpu_torch.models import criterion as crit
 from avsep_tpu_torch.ops.metrics import eval_metrics
 from avsep_tpu_torch.ops.stft import istft, stft_magphase
 from avsep_tpu_torch.ops.warp import unwarp_mask
+from avsep_tpu_torch.parallel import distributed as pdist
 from avsep_tpu_torch.utils.media import (
     combine_video_audio, magnitude2heatmap, makedirs, save_video)
 from avsep_tpu_torch.utils.meters import AverageMeter
@@ -115,13 +116,14 @@ def score_masks(cfg: Config, batch: Dict[str, torch.Tensor],
     preds_wav = torch.clamp(istft(spec, cfg.stft_hop, dft=cfg.dft),
                             -1.0, 1.0)
 
-    # all-zero predictions -> noise floor (reference main.py:248-249)
+    # all-zero predictions -> noise floor (reference main.py:248-249); the
+    # draw is the global batch's, cut to this rank's rows
     if noise_uniforms is None:
         if noise_generator is None:
             raise ValueError("the noise floor needs noise_uniforms or a "
                              "noise_generator")
-        noise_uniforms = torch.rand(preds_wav.shape,
-                                    generator=noise_generator, device=dev)
+        noise_uniforms = pdist.rank_rand(preds_wav.shape, noise_generator,
+                                         device=dev)
     allzero = torch.all(preds_wav == 0, dim=-1, keepdim=True)
     noise = 0.01 * torch.as_tensor(noise_uniforms, dtype=torch.float32,
                                    device=dev)
@@ -166,18 +168,27 @@ def evaluate(cfg: Config, nets: Nets, loader, history: dict, itera: int,
     iterations (``itera > 0``), and the media of the first ``cfg.num_vis``
     samples when ``write_visuals``.
 
-    A ragged final batch is padded to the first batch's size by repeating
-    its last row, and the padded rows are left out of every meter and row
-    (the per-sample ``err_ps`` / ``match_ps``).  ``draws``, if given,
-    yields one dict per batch with ``swap_uniforms [B]`` and
-    ``noise_uniforms [B, N, L']`` (padded size); else the draws come from
+    A ragged final batch is padded to the first batch's size, rounded up to
+    a multiple of the ranks, by repeating its last row, and the padded rows
+    are left out of every meter and row (the per-sample ``err_ps`` /
+    ``match_ps``).  ``draws``, if given, yields one dict per batch with
+    ``swap_uniforms [B]`` and ``noise_uniforms [B, N, L']`` (padded size;
+    this rank's rows under a process group); else the draws come from
     generators seeded from ``cfg.seed``.  Runs on ``cuda`` unless
     ``device="cpu"``.
+
+    Under a process group the sweep is replicated as in the JAX package:
+    every rank loads the same val batches, scores its rows, and gathers the
+    per-row metrics of the whole batch (``distributed.fetch``), so the
+    meters and the history are the one-process sweep's on every rank; the
+    primary rank writes ``results.csv``, the plots and the media.
     """
     dev = engine.nets_device(nets, device)
     print("Evaluating at {} iterations...".format(itera))
     vis_root = os.path.join(cfg.ckpt, "visualization")
-    makedirs(vis_root, remove=False)
+    primary = pdist.is_primary()
+    if primary:
+        makedirs(vis_root, remove=False)
 
     step = make_eval_step(cfg, nets, use_vis_eval, device=dev)
     meters = {k: AverageMeter() for k in
@@ -201,7 +212,8 @@ def evaluate(cfg: Config, nets: Nets, loader, history: dict, itera: int,
         visual stream its forward reads."""
         true_bs = len(batch["id"])
         if pad_state["pad_to"] is None:
-            pad_state["pad_to"] = true_bs
+            P = pdist.world_size()
+            pad_state["pad_to"] = -(-true_bs // P) * P
         pad_to = pad_state["pad_to"]
         padded = {}
         for k, v in batch.items():
@@ -210,8 +222,8 @@ def evaluate(cfg: Config, nets: Nets, loader, history: dict, itera: int,
                 v = np.concatenate(
                     [v, np.repeat(v[-1:], pad_to - v.shape[0], axis=0)])
             padded[k] = v
-        return batch, engine.to_device(padded, dev, drop=skip,
-                                       cfg=cfg), true_bs
+        return batch, engine.to_device(padded, dev, drop=skip, cfg=cfg,
+                                       mode="replicate"), true_bs
 
     prefetcher = DevicePrefetcher(iter(loader), _pad_and_ship)
     try:
@@ -220,7 +232,7 @@ def evaluate(cfg: Config, nets: Nets, loader, history: dict, itera: int,
                 "generator": swap_gen, "noise_generator": noise_gen}
             metrics, outputs, preds_wav = step(dev_batch, **kw)
             metrics = {k: _host(m)[:true_bs] if m.dim() else float(m)
-                       for k, m in metrics.items()}
+                       for k, m in pdist.fetch(metrics).items()}
             meters["loss"].update(float(np.mean(metrics["err_ps"])),
                                   weight=true_bs)
             meters["match"].update(float(np.mean(metrics["match_ps"]))
@@ -237,11 +249,13 @@ def evaluate(cfg: Config, nets: Nets, loader, history: dict, itera: int,
                                "si-snr": float(metrics["si_sdr"][n])})
             if write_visuals and vis_budget > 0:
                 n_vis = min(vis_budget, true_bs)
-                out_h = {k: _host(v[:n_vis]) if v.dim() else float(v)
-                         for k, v in outputs.items() if v is not None}
-                output_visuals(vis_root, cfg, batch, out_h,
-                               _host(preds_wav[:n_vis]), n_vis,
-                               use_vis_eval)
+                outputs, preds_wav = pdist.fetch((outputs, preds_wav))
+                if primary:
+                    out_h = {k: _host(v[:n_vis]) if v.dim() else float(v)
+                             for k, v in outputs.items() if v is not None}
+                    output_visuals(vis_root, cfg, batch, out_h,
+                                   _host(preds_wav[:n_vis]), n_vis,
+                                   use_vis_eval)
                 vis_budget -= n_vis
     finally:
         # an exception mid-sweep must not leave the producer thread parked
@@ -269,6 +283,8 @@ def evaluate(cfg: Config, nets: Nets, loader, history: dict, itera: int,
         history[keyname].setdefault("perm_acc", []).append(
             meters["perm_acc"].average())
 
+    if not primary:
+        return
     # per-sample results.csv (reference main.py:493-498)
     save_dir = os.path.join(vis_root, "av" if use_vis_eval else "ao")
     makedirs(save_dir, remove=False)

@@ -5,10 +5,17 @@ same flags (``scripts/train_MUSIC.sh`` and ``scripts/eval_MUSIC.sh`` parse
 unchanged; see ``config.parse_args`` for the flags that raise), the same
 loop: AV / AO batch interleaving, display / eval / checkpoint ticks, the
 iteration and data-time meters, the history dict, latest and best
-checkpoints.  The step is ``train.make_train_step`` on one GPU, in float32;
-``num_gpus`` keeps the JAX package's single-device meaning, a global batch
-of ``num_gpus * batch_size_per_gpu`` on the one card.  The checkpoint
-carries the optimizer state (``checkpoint.py``).
+checkpoints.  The step is ``train.make_train_step``; the global batch is
+``num_gpus * batch_size_per_gpu``.  The checkpoint carries the optimizer
+state (``checkpoint.py``).
+
+Data parallelism (``parallel/``): ``--dist_coordinator host:port
+--dist_nprocs N --dist_procid i`` runs process i of N, one card each, and a
+step over the N ranks computes what one process computes on the global
+batch (``--dist_data replicate``: every process loads it and keeps its
+rows; ``shard``: each loads its own rows from a disjoint part of the
+dataset).  One process uses one card, so without these flags the whole
+global batch runs on it.
 
 ``main(cfg)`` runs on ``cuda`` and raises without a GPU; ``main(cfg,
 device="cpu")`` runs on the CPU.  The command line has no device flag.
@@ -31,18 +38,43 @@ from avsep_tpu_torch.config import Config, parse_args
 from avsep_tpu_torch.data.dataset import MusicMixDataset
 from avsep_tpu_torch.data.loader import (
     BatchLoader, ConcatDataset, DevicePrefetcher, ProcessBatchLoader,
-    iter_forever)
+    ShardDataset, iter_forever)
 from avsep_tpu_torch.utils.media import makedirs
 from avsep_tpu_torch.utils.meters import AverageMeter, new_history
 
 
-def build_loaders(cfg: Config, val_only: bool = False):
+def build_loaders(cfg: Config, val_only: bool = False, rank: int = 0,
+                  world: int = 1):
     """AV / AO / val loaders (reference main.py:633-657); ``val_only``
     skips the train datasets, so eval mode needs no train manifests.
     ``workers > 0`` gives process loaders for training (the reference's
     DataLoader ``num_workers``), 0 the in-process thread loader; the val
     loader has 4 workers whatever ``workers`` says, as the reference
-    (main.py:656)."""
+    (main.py:656).
+
+    Process ``rank`` of ``world``: under ``dist_data=replicate`` every
+    process runs these loaders alike (deterministic datasets,
+    order-preserving loaders) and keeps its own rows of each batch
+    (``engine.to_device``); under ``shard`` each process's train loaders
+    draw ``batch/world`` rows from a disjoint ``1/world`` of the dataset
+    (``ShardDataset``), so a global batch never holds a sample twice and
+    every sample comes once per global epoch.  The val loader stays
+    replicated, so the eval meters do not depend on the processes."""
+    shard = world > 1 and cfg.dist_data == "shard"
+    train_bs = cfg.batch_size // world if shard else cfg.batch_size
+
+    def maybe_shard(ds):
+        if not shard:
+            return ds
+        sh = ShardDataset(ds, rank, world)
+        if len(sh) < train_bs:
+            raise ValueError(
+                f"dist_data=shard: {len(ds)} samples / {world} processes "
+                f"leaves {len(sh)} per process — fewer than the "
+                f"per-process batch {train_bs} (raise train_repeat or "
+                f"use dist_data=replicate)")
+        return sh
+
     cls = ProcessBatchLoader if int(cfg.workers) > 0 else BatchLoader
     val_ds = ConcatDataset([MusicMixDataset(p, cfg, split="val")
                             for p in cfg.list_val])
@@ -58,25 +90,48 @@ def build_loaders(cfg: Config, val_only: bool = False):
                            for p in cfg.ao_list_train])
 
     def mk(ds):
-        return cls(ds, cfg.batch_size, shuffle=True,
+        return cls(maybe_shard(ds), train_bs, shuffle=True,
                    num_workers=max(1, int(cfg.workers)), seed=cfg.seed,
                    drop_last=True)
     return mk(av_ds), mk(ao_ds), val_loader
 
 
 def main(cfg: Config, device=None) -> None:
+    """Train or evaluate as ``cfg.mode`` says.  With ``dist_nprocs > 1``
+    this process joins the group first (``distributed.maybe_initialize``,
+    before anything touches a card) and leaves it at the end, also on an
+    error, so its peers do not wait in a collective."""
+    from avsep_tpu_torch.parallel import distributed as pdist
+    owned = pdist.maybe_initialize(cfg, device=device)
+    try:
+        _main(cfg, device)
+    finally:
+        if owned:
+            pdist.shutdown()
+
+
+def _main(cfg: Config, device) -> None:
     import torch
     from avsep_tpu_torch import checkpoint as ckpt_io
     from avsep_tpu_torch.engine import (
         build_nets, resolve_device, to_device, unused_visual_streams)
     from avsep_tpu_torch.evaluate import evaluate
+    from avsep_tpu_torch.parallel import distributed as pdist
+    from avsep_tpu_torch.parallel.mesh import mesh_from_config
     from avsep_tpu_torch.train import (
         batch_scheduler, init_state, make_train_step)
 
     dev = resolve_device(device)
+    pdist.validate_global_batch(cfg)
+    mesh = mesh_from_config(cfg)
     print("Model ID: {}".format(cfg.id))
+    if mesh.size > 1:
+        print(f"[dist] rank {mesh.rank} of a {mesh.size}-wide "
+              f"'{mesh.axis_name}' axis on {dev}, dist_data "
+              f"{cfg.dist_data}")
     cfg = cfg.replace(ckpt=os.path.join(cfg.ckpt, cfg.id))
-    makedirs(cfg.ckpt, remove=False)
+    if pdist.is_primary():
+        makedirs(cfg.ckpt, remove=False)
 
     nets = build_nets(cfg, device=dev)
     state = init_state(cfg, nets, torch.Generator().manual_seed(cfg.seed),
@@ -95,7 +150,7 @@ def main(cfg: Config, device=None) -> None:
             print("Recovered from history.")
 
     av_loader, ao_loader, val_loader = build_loaders(
-        cfg, val_only=cfg.mode == "eval")
+        cfg, val_only=cfg.mode == "eval", rank=mesh.rank, world=mesh.size)
 
     if cfg.mode == "eval":
         if not cfg.load_ckpt:
@@ -105,6 +160,7 @@ def main(cfg: Config, device=None) -> None:
             else:
                 print("WARNING: no best checkpoint found; evaluating "
                       "current params")
+        pdist.broadcast_state(state)
         try:
             for use_vis in (True, False):
                 evaluate(cfg, nets, val_loader, history, 0, use_vis,
@@ -114,6 +170,7 @@ def main(cfg: Config, device=None) -> None:
         print("Evaluation Done!")
         return
 
+    pdist.broadcast_state(state)
     steps = {v: make_train_step(cfg, nets, v, device=dev)
              for v in (True, False)}
     # the copy of batch i + 1 to the device is issued while step i runs
@@ -145,6 +202,7 @@ def _train_loop(cfg, state, history, best_holder, start_i, steps, use_vis_fn,
     import torch
     from avsep_tpu_torch import checkpoint as ckpt_io
     from avsep_tpu_torch.evaluate import evaluate
+    from avsep_tpu_torch.parallel import distributed as pdist
 
     iter_time, data_time, match_meter = (AverageMeter(), AverageMeter(),
                                          AverageMeter())
@@ -165,8 +223,9 @@ def _train_loop(cfg, state, history, best_holder, start_i, steps, use_vis_fn,
     try:
         for i in range(start_i + 1, cfg.num_iters):
             # a torch.profiler trace of iterations [profile_start,
-            # profile_start + profile_steps)
-            if cfg.profile_dir and i == cfg.profile_start:
+            # profile_start + profile_steps), of the primary rank
+            if cfg.profile_dir and i == cfg.profile_start and \
+                    pdist.is_primary():
                 from torch.profiler import ProfilerActivity, profile
                 os.makedirs(cfg.profile_dir, exist_ok=True)
                 acts = [ProfilerActivity.CPU] + (

@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from avsep_tpu_torch.models.layers import cosine_similarity
+from avsep_tpu_torch.parallel.distributed import rank_rand
 
 class FusionOut(NamedTuple):
     features: Optional[torch.Tensor]     # [B, h, w, 2D] fused bottleneck
@@ -138,13 +139,14 @@ def _random_slot_swap(blocks: torch.Tensor, uniforms: torch.Tensor
 def swap_uniforms(B: int, uniforms: Optional[torch.Tensor],
                   generator: Optional[torch.Generator]) -> torch.Tensor:
     """The audio-only slot swap's ``[B]`` uniforms: ``uniforms`` as given,
-    else a draw from ``generator``."""
+    else a draw from ``generator``, made for the global batch and cut to
+    this rank's rows under a process group (``distributed.rank_rand``)."""
     if uniforms is not None:
         return torch.as_tensor(uniforms, dtype=torch.float32)
     if generator is None:
         raise ValueError("the audio-only fusion path needs swap uniforms or a "
                          "torch.Generator")
-    return torch.rand(B, generator=generator)
+    return rank_rand((B,), generator)
 
 
 def _ao_forward(x: torch.Tensor, C: int = 2, *,

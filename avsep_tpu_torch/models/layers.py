@@ -13,7 +13,9 @@ The initializers take an explicit CPU ``torch.Generator`` and draw on the
 CPU, so the same seed gives the same weights on every device.
 
 :class:`BatchNorm` is the one BatchNorm of the port's nets (U-Net, ResNet,
-tiny encoder): its train mode updates the running statistics as Flax does.
+tiny encoder, motion net, SoP++ nets): its train mode updates the running
+statistics as Flax does, and under a process group of more than one rank
+takes the statistics of the global batch (``parallel/distributed.py``).
 
 Compute dtype (Flax's ``dtype``).  :class:`Conv2d`, :class:`Conv3d` and
 :class:`BatchNorm` take ``compute_dtype``; their parameters and buffers
@@ -33,6 +35,8 @@ import threading
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from avsep_tpu_torch.parallel.distributed import all_reduce_sum, world_size
 
 # ---------------------------------------------------------------- initializers
 
@@ -207,6 +211,14 @@ class BatchNorm(nn.BatchNorm2d):
     dtype, as are the parameters and running buffers: on a bfloat16 input
     the statistics and the normalization are computed in float32, and the
     result is returned in ``compute_dtype``.
+
+    Under a process group of more than one rank, train mode normalizes with
+    the statistics of the global batch, as the JAX package's BatchNorm does
+    under a data mesh: the mean from the all-reduced sums and counts, then
+    the biased variance from the all-reduced centred squares (two-pass, in
+    float32), each collective differentiable (``all_reduce_sum``), so the
+    gradient flows through the global statistics; the running buffers
+    follow from the same global numbers and stay equal across the ranks.
     """
 
     def __init__(self, features: int, momentum: float = 0.9,
@@ -221,19 +233,41 @@ class BatchNorm(nn.BatchNorm2d):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps
                                 ).to(self.compute_dtype)
-        batch = torch.zeros(2, x.shape[1], dtype=torch.float32,
-                            device=x.device)
-        y = F.batch_norm(x, batch[0], batch[1], self.weight, self.bias, True,
-                         1.0, self.eps)
+        m = self.flax_momentum
+        if world_size() > 1:
+            y, mean, var = self._global_batch_norm(x)
+            var_alpha = 1.0 - m
+        else:
+            batch = torch.zeros(2, x.shape[1], dtype=torch.float32,
+                                device=x.device)
+            y = F.batch_norm(x, batch[0], batch[1], self.weight, self.bias,
+                             True, 1.0, self.eps)
+            n = x.numel() // x.shape[1]
+            # the unbiased variance, made biased in the update
+            mean, var, var_alpha = batch[0], batch[1], (1.0 - m) * (n - 1) / n
         if not getattr(_FROZEN, "on", False):
             with torch.no_grad():
-                n = x.numel() // x.shape[1]
-                m = self.flax_momentum
-                self.running_mean.mul_(m).add_(batch[0], alpha=1.0 - m)
-                self.running_var.mul_(m).add_(batch[1],
-                                              alpha=(1.0 - m) * (n - 1) / n)
+                self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var, alpha=var_alpha)
                 self.num_batches_tracked.add_(1)
         return y.to(self.compute_dtype)
+
+    def _global_batch_norm(self, x: torch.Tensor):
+        """Train-mode normalization with the global batch's statistics:
+        ``(y, mean, biased var)``, the statistics detached.  Two
+        collectives forward (sums with the count, then centred squares)
+        and their two backward."""
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        xf = x.float()
+        count = xf.new_full((1,), xf.numel() // xf.shape[1])
+        sums = all_reduce_sum(torch.cat([xf.sum(dims), count]))
+        mean = sums[:-1] / sums[-1]
+        d = xf - mean.reshape(shape)
+        var = all_reduce_sum((d * d).sum(dims)) / sums[-1]
+        y = d * torch.rsqrt(var + self.eps).reshape(shape) \
+            * self.weight.reshape(shape) + self.bias.reshape(shape)
+        return y, mean.detach(), var.detach()
 
 
 class TorchBatchNorm(nn.Module):

@@ -37,6 +37,7 @@ from avsep_tpu_torch.config import Config
 from avsep_tpu_torch.models import criterion as crit
 from avsep_tpu_torch.models.builder import activate
 from avsep_tpu_torch.models.sop import get_attmodule
+from avsep_tpu_torch.parallel import distributed as pdist
 
 
 class SopNets(NamedTuple):
@@ -173,7 +174,11 @@ def sop_forward(nets: SopNets, batch, cfg: Config, use_vis: bool, *,
     err = torch.mean(err_ps)
     if extra_loss is not None:
         err = err + extra_loss
-        err_ps = err_ps + extra_loss
+        # the extra loss is a mean over the batch's rows: under a process
+        # group the samples share the global batch's, the ranks' mean
+        shared = extra_loss.detach().clone()
+        pdist.mean_([shared])
+        err_ps = err_ps + shared
     outputs: Dict[str, torch.Tensor] = {
         "pred_masks": preds, "gt_masks": prep.gt_masks,
         "mag_mix": prep.mag_mix, "mags": prep.mags, "weight": prep.weights,

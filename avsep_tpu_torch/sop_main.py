@@ -18,6 +18,11 @@ then ``evaluate.score_masks``: 3 ``frame_window`` launches and 1
 ``overlap_add_normalize`` per step on a CUDA batch; a train step launches
 ``frame_window`` twice.
 
+Data parallelism as in ``main.py`` (``parallel/``): ``--dist_coordinator
+--dist_nprocs --dist_procid`` run one process per card, the step's
+gradients, metrics and BatchNorm statistics those of the global batch; the
+eval sweep is replicated and gathered, and the primary rank writes.
+
 The entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
 and raise without a GPU; the command line has no device flag.  Torch is
 imported inside the functions, so a process loader's worker (which
@@ -113,8 +118,7 @@ def make_sop_train_step(cfg: Config, nets, use_vis: bool, stage: int,
         err, outputs = sop_forward(state.nets, batch, cfg, use_vis,
                                    train=True, stage=stage)
         train.apply_gradients(cfg, state, err, use_vis)
-        return state, {"err": err.detach(),
-                       "match_loss": outputs["match_loss"].detach()}
+        return state, train.step_metrics(err, outputs["match_loss"])
 
     return step
 
@@ -152,18 +156,22 @@ def sop_evaluate(cfg: Config, nets, loader, history: dict, itera: int, *,
                  ) -> None:
     """The val sweep of both branches through the SoP++ forward (the JAX
     package's ``_sop_evaluate``): a ragged final batch padded to the first
-    batch's size by repeating its last row, the padded rows left out of
-    the meters and rows; ``history[val_av | val_ao]``, and a per-sample
-    ``results.csv`` under ``cfg.ckpt/visualization/sop_{av,ao}/``.
+    batch's size, rounded up to a multiple of the ranks, by repeating its
+    last row, the padded rows left out of the meters and rows;
+    ``history[val_av | val_ao]``, and a per-sample ``results.csv`` under
+    ``cfg.ckpt/visualization/sop_{av,ao}/``.  Under a process group each
+    rank scores its rows of the replicated batch and the per-row metrics
+    are gathered (``distributed.fetch``); the primary rank writes.
 
     ``draws``, if given, holds one dict per batch with ``noise_uniforms``
-    (padded size) and serves both branches, as the JAX sweep restarts its
-    key per branch; else the noise comes from a generator on the device
-    seeded from ``cfg.seed``, per branch.  Runs on ``cuda`` unless
-    ``device="cpu"``."""
+    (padded size; this rank's rows under a group) and serves both
+    branches, as the JAX sweep restarts its key per branch; else the noise
+    comes from a generator on the device seeded from ``cfg.seed``, per
+    branch.  Runs on ``cuda`` unless ``device="cpu"``."""
     import torch
 
     from avsep_tpu_torch import engine
+    from avsep_tpu_torch.parallel import distributed as pdist
     dev = engine.nets_device(nets, device)
     for use_vis in (True, False):
         meters = {k: AverageMeter() for k in
@@ -174,19 +182,20 @@ def sop_evaluate(cfg: Config, nets, loader, history: dict, itera: int, *,
         skip = engine.unused_visual_streams(cfg) if use_vis \
             else ("frames", "clips")
         csv_ls = []
-        pad_to = None
+        pad_to, P = None, pdist.world_size()
         for batch in loader:
             true_bs = len(batch["id"])
-            pad_to = pad_to or true_bs
+            pad_to = pad_to or -(-true_bs // P) * P
             padded = {k: (np.concatenate([v, np.repeat(
                 v[-1:], pad_to - v.shape[0], axis=0)])
                 if isinstance(v, np.ndarray) and v.shape[0] < pad_to else v)
                 for k, v in batch.items()}
             kw = next(batch_draws) if batch_draws is not None else {
                 "noise_generator": noise_gen}
-            m, _, _ = step(engine.to_device(padded, dev, drop=skip, cfg=cfg),
-                           **kw)
-            m = {k: v.cpu().numpy()[:true_bs] for k, v in m.items()}
+            m, _, _ = step(engine.to_device(padded, dev, drop=skip, cfg=cfg,
+                                            mode="replicate"), **kw)
+            m = {k: v.cpu().numpy()[:true_bs]
+                 for k, v in pdist.fetch(m).items()}
             meters["err"].update(float(np.mean(m["err_ps"])),
                                  weight=true_bs)
             for k in ("sdr", "sir", "sar", "si_sdr"):
@@ -206,6 +215,8 @@ def sop_evaluate(cfg: Config, nets, loader, history: dict, itera: int, *,
                                      meters["sir"].average(),
                                      meters["sar"].average(),
                                      meters["si_sdr"].average()))
+        if not pdist.is_primary():
+            continue
         save_dir = os.path.join(cfg.ckpt, "visualization",
                                 "sop_av" if use_vis else "sop_ao")
         makedirs(save_dir, remove=False)
@@ -217,18 +228,35 @@ def sop_evaluate(cfg: Config, nets, loader, history: dict, itera: int, *,
 
 
 def main(cfg: Config, device=None) -> None:
+    """Train or evaluate the SoP++ nets as ``cfg.mode`` says, joining and
+    leaving the process group as ``main.main`` does."""
+    from avsep_tpu_torch.parallel import distributed as pdist
+    owned = pdist.maybe_initialize(cfg, device=device)
+    try:
+        _main(cfg, device)
+    finally:
+        if owned:
+            pdist.shutdown()
+
+
+def _main(cfg: Config, device) -> None:
     import torch
 
     from avsep_tpu_torch import checkpoint as ckpt_io
     from avsep_tpu_torch.engine import (
         resolve_device, to_device, unused_visual_streams)
+    from avsep_tpu_torch.parallel import distributed as pdist
+    from avsep_tpu_torch.parallel.mesh import mesh_from_config
     from avsep_tpu_torch.sop_engine import stage_for_iter
     from avsep_tpu_torch.train import batch_scheduler
 
     dev = resolve_device(device)
+    pdist.validate_global_batch(cfg)
+    mesh = mesh_from_config(cfg)
     print("Model ID: {}".format(cfg.id))
     cfg = cfg.replace(ckpt=os.path.join(cfg.ckpt, cfg.id))
-    makedirs(cfg.ckpt, remove=False)
+    if pdist.is_primary():
+        makedirs(cfg.ckpt, remove=False)
 
     nets = build_sop_nets(cfg, device=dev)
     state = init_sop_state(cfg, nets, torch.Generator().manual_seed(cfg.seed),
@@ -247,7 +275,7 @@ def main(cfg: Config, device=None) -> None:
             print("Recovered from history.")
 
     av_loader, ao_loader, val_loader = build_loaders(
-        cfg, val_only=cfg.mode == "eval")
+        cfg, val_only=cfg.mode == "eval", rank=mesh.rank, world=mesh.size)
 
     if cfg.mode == "eval":
         if not cfg.load_ckpt:
@@ -256,6 +284,7 @@ def main(cfg: Config, device=None) -> None:
             else:
                 print("WARNING: no best checkpoint found; evaluating "
                       "current params")
+        pdist.broadcast_state(state)
         try:
             sop_evaluate(cfg, nets, val_loader, history, 0, device=dev)
         finally:
@@ -263,6 +292,7 @@ def main(cfg: Config, device=None) -> None:
         print("Evaluation Done!")
         return
 
+    pdist.broadcast_state(state)
     use_vis_fn = batch_scheduler(cfg)
     av_iter = DevicePrefetcher(
         iter_forever(av_loader),

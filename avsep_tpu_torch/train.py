@@ -48,6 +48,7 @@ from avsep_tpu_torch.engine import Nets
 from avsep_tpu_torch.models.torch_import import (
     load_torch_checkpoint, resnet_state_dict_from_torch,
     unet_state_dict_from_torch)
+from avsep_tpu_torch.parallel import distributed as pdist
 
 
 @dataclasses.dataclass
@@ -231,14 +232,27 @@ def _sgd_update(cfg: Config, state: TrainState, params: Dict, grads: Dict,
 def apply_gradients(cfg: Config, state: TrainState, err: torch.Tensor,
                     use_vis: bool) -> None:
     """The gradient of ``err`` for the parameters of the groups that
-    advance, then one SGD update of those groups, in place; ``step`` + 1."""
+    advance, averaged across the ranks under a process group (one
+    ``all_reduce`` of one buffer: the gradient of the global batch's mean
+    loss), then one SGD update of those groups, in place; ``step`` + 1."""
     params = dict(named_parameters(state.nets))
     groups = _groups_of(cfg, state, use_vis)
     live = [n for n in params if param_group(n) in groups]
     grads = torch.autograd.grad(err, [params[n] for n in live],
                                 allow_unused=True)
+    pdist.mean_([g for g in grads if g is not None])
     _sgd_update(cfg, state, params, dict(zip(live, grads)), use_vis)
     state.step += 1
+
+
+def step_metrics(err: torch.Tensor, match_loss: torch.Tensor
+                 ) -> Dict[str, torch.Tensor]:
+    """A train step's detached ``err`` and ``match_loss``, averaged across
+    the ranks under a process group (one ``all_reduce``), so every rank
+    reports the global batch's numbers."""
+    metrics = {"err": err.detach(), "match_loss": match_loss.detach()}
+    pdist.mean_(list(metrics.values()))
+    return metrics
 
 
 def make_train_step(cfg: Config, nets: Nets, use_vis: bool,
@@ -246,9 +260,9 @@ def make_train_step(cfg: Config, nets: Nets, use_vis: bool,
     """Returns ``step(state, batch, *, swap_uniforms=None, generator=None)
     -> (state, metrics)``: one forward (AV if ``use_vis``, else AO), one
     backward and one SGD update, in place; ``metrics`` holds the detached
-    ``err`` and ``match_loss``.  The AO step's slot swap takes
-    ``swap_uniforms [B]`` or ``generator``.  The nets must lie on
-    ``device`` (``cuda`` unless ``device="cpu"``)."""
+    ``err`` and ``match_loss`` (:func:`step_metrics`).  The AO step's slot
+    swap takes ``swap_uniforms [B]`` (this rank's rows) or ``generator``.
+    The nets must lie on ``device`` (``cuda`` unless ``device="cpu"``)."""
     dev = engine.nets_device(nets, device)
 
     def step(state: TrainState, batch, *, swap_uniforms=None,
@@ -257,8 +271,7 @@ def make_train_step(cfg: Config, nets: Nets, use_vis: bool,
             state.nets, batch, cfg, use_vis, train=True,
             swap_uniforms=swap_uniforms, generator=generator)
         apply_gradients(cfg, state, err, use_vis)
-        return state, {"err": err.detach(),
-                       "match_loss": outputs["match_loss"].detach()}
+        return state, step_metrics(err, outputs["match_loss"])
 
     return step
 

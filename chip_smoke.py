@@ -160,6 +160,28 @@ script exits non-zero before printing any result.
    --frame_decode native`` on data/mini (cuts stated in its line): the
    route printed, finite losses, one eval, 2 launches per train step and
    3 + 1 per eval step, TF32 off.
+18. Data parallelism (avsep_tpu_torch/parallel/), each path in child
+   processes of this script (``--dist-child``) that count their own
+   kernels' launches.  NCCL refuses two ranks on one card, so the two
+   ranks run gloo on CUDA tensors, through the host; the compute mode
+   must let two processes share the card.
+   dist_train: two ranks, train_MUSIC.sh's float32 recipe at full width,
+   B = 16 global (8 rows each), from spread_weights, 2 AV and 2 AO steps:
+   per-rank ms per step and peak memory, the ranks' states bit for bit
+   equal, and rank 0, after leaving the group, against one process on
+   the same global batches within ``DIST_TOL``; 2 frame_window launches
+   per step and rank.
+   dist_eval: the same ranks' eval sweeps (eval_MUSIC.sh's recipe) over
+   16 + 16 + a ragged 8 clips: the gathered meters equal on both ranks
+   and within ``DIST_METER_TOL`` of one process's sweep, one finite
+   results.csv row per clip from rank 0; 3 + 1 launches per eval step.
+   dist_nccl: a one-rank NCCL group through the same sweep (bit for bit
+   against no group) and an AV and an AO step (``DIST_TOL``).
+   cli_dist: ``main.main`` with train_MUSIC.sh's float32 recipe in two
+   ranks that joined a gloo group first, ``replicate`` and ``shard``, and
+   in one process, at once: iterations 1 to 3 and an eval; the replicate
+   history within ``CLI_DIST_TOL`` of one process's, rank 1 writing
+   nothing under the checkpoint directory.
 Then the kernel table as one JSON line (launches summed over the main
 paths' runs, by path and per call), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -174,6 +196,7 @@ import json
 import os
 import re
 import shlex
+import shutil
 import subprocess
 import sys
 import time
@@ -187,6 +210,7 @@ from avsep_tpu_torch.data.loader import BatchLoader
 from avsep_tpu_torch.ops import kernels
 from avsep_tpu_torch.ops.stft import _reflect_pad, istft_denominator
 from avsep_tpu_torch.ops.warp import unwarp_mask
+from avsep_tpu_torch.parallel import distributed as pdist
 from avsep_tpu_torch.utils.meters import new_history
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and the float32 rate outside the
@@ -2290,6 +2314,496 @@ def cli_clipatt(decode):
     return launches, CLI_CLIPATT_ITERS + eval_steps
 
 
+# ------------------------------------------------------------- slice 8
+#
+# Data parallelism (avsep_tpu_torch/parallel/), each path in child
+# processes of this script (``--dist-child``): ranks of a process group,
+# one process each, that count their own kernels' launches and print a
+# JSON report as their last line.  NCCL refuses two ranks on one device,
+# so the two-rank phases run gloo on CUDA tensors (through the host); the
+# NCCL path is a group of one rank.
+
+DIST_DIR = os.path.join(OUT_DIR, "dist")
+# dist_train: train_MUSIC.sh's recipe (TRAIN) at B = 16 global, 8 rows per
+# rank, from spread_weights (the reference's U-Net init makes the fusion's
+# best permutation a coin toss of rounding): 2 AV and 2 AO steps
+DIST_SEQ = (True, False, True, False)
+# dist_eval: eval_MUSIC.sh's recipe (EVAL) over 16 + 16 + a ragged 8 clips
+DIST_EVAL_CLIPS = 40
+# two ranks against one process on the same global batches and weights,
+# and one NCCL rank against no group: losses, parameters against their
+# change, momentum buffers, running statistics (compare_states).  On an
+# H100 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6) two ranks read:
+# losses 9.5e-8, parameters within a few ulps (param_err < 0), momentum
+# 8.1e-5 over all buffers and 5.3e-3 per buffer (the dilated ResNet's
+# layer1 BatchNorm), running statistics 5.9e-7; the one NCCL rank, whose
+# steps differ from no group's only by the card's nondeterministic
+# backward (the upsample), 9.9e-4 per buffer.  The limits are 4x to 17x
+# those readings, param_err TRAIN_TOL's.
+DIST_TOL = {"loss_rel_err": 1e-6, "momentum_global_l2_err": 1e-3,
+            "momentum_l2_err": 2e-2, "param_err": 2e-3, "bn_stats_err": 1e-5}
+# two ranks' eval meters (dist_eval) against one process's sweep,
+# relative: read 2.1e-5 (8 rows per rank against 16: cuDNN's algorithms
+# differ with the batch, and a mask bin within rounding of the threshold
+# flips).  The NCCL rank's sweep runs on the same weights as no group's
+# and must equal it bit for bit.
+DIST_METER_TOL = 1e-4
+# cli_dist: the replicate run's loss history and eval meters against one
+# process's, relative, after CLI_DIST_ITERS steps at B = 4: read 8.9e-5
+# and 3.1e-7 (the deep layers' gradients amplify float32 rounding;
+# tests/test_torch_parallel.py measures the same on the CPU)
+CLI_DIST_TOL = {"loss_rel_err": 5e-4, "meters_err": 1e-5}
+# dist_nccl: the eval sweep, then one AV and one AO step, at B = 16
+NCCL_SEQ = (True, False)
+NCCL_EVAL_CLIPS = 24
+# cli_dist: main.main with train_MUSIC.sh's flags in float32 (its own
+# parity recipe, --dtype float32 --dft fft), iterations 1 .. CLI_DIST_ITERS
+# with an eval at the last, global batch 2 x 2
+CLI_DIST_ITERS = 3
+DIST_TIMEOUT = 600
+
+
+def _join(rank, world, backend, init):
+    """Join a group through the ``file://`` store ``init``, on the rank's
+    card (made current first, as ``distributed.maybe_initialize`` does)."""
+    import datetime
+
+    import torch.distributed as dist
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=f"file://{init}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+
+
+def _all_tensors(state):
+    return [t for net in nets_of(state.nets)
+            for t in net.state_dict().values()] + [
+        b for g in state.opt_state.values() if g for b in g.momentum.values()]
+
+
+def ranks_identical(state) -> bool:
+    """Whether every parameter, buffer and momentum buffer equals rank 0's
+    bit for bit, on every rank (a broadcast of rank 0's, then an
+    all_reduce of the ranks' mismatches)."""
+    import torch.distributed as dist
+    bad = torch.zeros(1, device=engine.resolve_device(None))
+    for t in _all_tensors(state):
+        ref = t.detach().clone()
+        dist.broadcast(ref, 0)
+        bad += float(not torch.equal(ref, t.detach()))
+    dist.all_reduce(bad)
+    return bad.item() == 0
+
+
+def _steps(cfg, state, seq, batches, swap_seed):
+    """``seq`` train steps on this rank's rows of the global ``batches``
+    (replicate): synchronized ms per step and the losses."""
+    steps = {v: train.make_train_step(cfg, state.nets, v)
+             for v in (True, False)}
+    swap = torch.Generator().manual_seed(swap_seed)
+    dev = engine.resolve_device(None)
+    times, losses = [], []
+    for av, b in zip(seq, batches):
+        rows = {k: v.to(dev) for k, v in pdist.device_put_global(b).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = steps[av](state, rows, generator=swap)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["err"]))
+    return times, losses
+
+
+def _dist_state(cfg):
+    """train_MUSIC.sh's nets from ``init_state`` at SEED, spread_weights
+    from SEED + 8, broadcast from rank 0 (a no-op without a group)."""
+    state = train.init_state(cfg, engine.build_nets(cfg),
+                             torch.Generator().manual_seed(SEED))
+    spread_weights(state.nets, torch.Generator().manual_seed(SEED + 8))
+    pdist.broadcast_state(state)
+    return state
+
+
+def _eval_sweeps(cfg, nets, loader):
+    history = new_history()
+    for use_vis in (True, False):
+        evaluate.evaluate(cfg, nets, loader, history, 0, use_vis)
+    return history
+
+
+def meters_of(history):
+    return {key: {k: v[-1] for k, v in history[key].items() if k != "iter"}
+            for key in ("val_av", "val_ao")}
+
+
+def meters_err(got, want):
+    """Largest relative difference of two ``meters_of``."""
+    return max(abs(got[key][k] - v) / max(abs(v), 1e-12)
+               for key in want for k, v in want[key].items())
+
+
+def child_dist_train(rank, world, init):
+    """One rank of dist_train and dist_eval (gloo, CUDA tensors): the
+    steps, whether the ranks hold the same state bit for bit, the eval
+    sweep over a ragged val set; then rank 0 leaves the group and runs the
+    same on one process for the comparison."""
+    _join(rank, world, "gloo", init)
+    cfg = Config(**TRAIN)
+    state = _dist_state(cfg)
+    p0 = {n: p.detach().cpu().clone()
+          for n, p in train.named_parameters(state.nets)}
+    batches = train_batches(torch.Generator().manual_seed(SEED + 9),
+                            torch.device("cpu"), len(DIST_SEQ), B,
+                            aud_len=cfg.audLen, img=cfg.imgSize)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times, losses = _steps(cfg, state, DIST_SEQ, batches, SEED + 1)
+    report = {"rank": rank, "train_launches": read_launches(),
+              "step_ms": times, "losses": losses,
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "ranks_identical": ranks_identical(state)}
+    ecfg = Config(**EVAL, ckpt=os.path.join(DIST_DIR, "eval_ranks"))
+    clips = Clips(torch.Generator().manual_seed(SEED + 10), DIST_EVAL_CLIPS,
+                  aud_len=ecfg.audLen, img=ecfg.imgSize)
+    loader = BatchLoader(clips, B, shuffle=False, num_workers=4)
+    reset_launches()
+    t0 = time.perf_counter()
+    history = _eval_sweeps(ecfg, state.nets, loader)
+    torch.cuda.synchronize()
+    report.update(eval_launches=read_launches(),
+                  eval_wall_s=time.perf_counter() - t0,
+                  meters=meters_of(history))
+    pdist.shutdown()
+    if rank != 0:
+        return report
+    # one process: the same sweep with the same nets, then the same steps
+    # on the global batches from the same weights
+    one = ecfg.replace(ckpt=os.path.join(DIST_DIR, "eval_one"))
+    single = _eval_sweeps(one, state.nets, loader)
+    for branch in ("av", "ao"):
+        check_results(read_results(ecfg.ckpt, branch), history,
+                      "val_" + branch, DIST_EVAL_CLIPS)
+    ref = _dist_state(cfg)
+    _, ref_losses = _steps(cfg, ref, DIST_SEQ, batches, SEED + 1)
+    report.update(
+        single_meters=meters_of(single),
+        meters_err=meters_err(meters_of(history), meters_of(single)),
+        meters_bit_equal=meters_of(history) == meters_of(single),
+        single_losses=ref_losses,
+        vs_single=compare_states({"cuda": state, "cpu": ref},
+                                 {"cuda": losses, "cpu": ref_losses}, p0))
+    return report
+
+
+def child_dist_nccl(rank, world, init):
+    """dist_nccl: the eval sweep and the steps without a group, then the
+    same from the same weights in a one-rank NCCL group (its collectives
+    run, each the identity on one rank), under settled_cudnn.  The sweep
+    comes first, on the initial weights, so it sees the same parameters
+    in both runs; the steps' backward is not bit-reproducible on the card
+    (the upsample's)."""
+    cfg = Config(**TRAIN)
+    ecfg = Config(**EVAL, ckpt=os.path.join(DIST_DIR, "nccl_none"))
+    batches = train_batches(torch.Generator().manual_seed(SEED + 11),
+                            torch.device("cpu"), len(NCCL_SEQ), B,
+                            aud_len=cfg.audLen, img=cfg.imgSize)
+    clips = Clips(torch.Generator().manual_seed(SEED + 12), NCCL_EVAL_CLIPS,
+                  aud_len=ecfg.audLen, img=ecfg.imgSize)
+    loader = BatchLoader(clips, B, shuffle=False, num_workers=4)
+    runs = {}
+    with settled_cudnn():
+        for name in ("none", "nccl"):
+            if name == "nccl":
+                _join(rank, world, "nccl", init)
+                ecfg = ecfg.replace(ckpt=os.path.join(DIST_DIR, "nccl_one"))
+            state = _dist_state(cfg)
+            p0 = {n: p.detach().cpu().clone()
+                  for n, p in train.named_parameters(state.nets)}
+            reset_launches()
+            history = _eval_sweeps(ecfg, state.nets, loader)
+            eval_launches = read_launches()
+            reset_launches()
+            _, losses = _steps(cfg, state, NCCL_SEQ, batches, SEED + 1)
+            runs[name] = (state, losses, history, read_launches(),
+                          eval_launches)
+    import torch.distributed as dist
+    backend = dist.get_backend()
+    pdist.shutdown()
+    (ref, ref_losses, ref_h, _, _), (state, losses, h, tl, el) = \
+        runs["none"], runs["nccl"]
+    return {"backend": backend, "losses": losses, "single_losses": ref_losses,
+            "train_launches": tl, "eval_launches": el,
+            "meters": meters_of(h),
+            "meters_err": meters_err(meters_of(h), meters_of(ref_h)),
+            "meters_bit_equal": meters_of(h) == meters_of(ref_h),
+            "state_bit_equal": all(torch.equal(a, b) for a, b in zip(
+                _all_tensors(state), _all_tensors(ref))),
+            "vs_single": compare_states({"cuda": state, "cpu": ref},
+                                        {"cuda": losses, "cpu": ref_losses},
+                                        p0)}
+
+
+def child_cli(rank, world, init, *argv):
+    """cli_dist: ``main.main`` on this rank of a gloo group the process
+    joined first (``maybe_initialize`` is then a no-op), or alone for a
+    world of 1; the files it opened for writing under ``--ckpt`` and its
+    launches."""
+    import builtins
+
+    from avsep_tpu_torch import main as cli_main
+    if world > 1:
+        _join(rank, world, "gloo", init)
+    cfg = parse_args(list(argv))
+    root = os.path.realpath(cfg.ckpt)
+    writes = []
+    real_open, real_save = builtins.open, torch.save
+
+    def record(file):
+        if isinstance(file, (str, os.PathLike)) and \
+                os.path.realpath(file).startswith(root):
+            writes.append(os.path.realpath(file))
+
+    def traced_open(file, mode="r", *a, **kw):
+        if set(mode) & set("wax+"):
+            record(file)
+        return real_open(file, mode, *a, **kw)
+
+    def traced_save(obj, f, *a, **kw):
+        record(f)
+        return real_save(obj, f, *a, **kw)
+
+    builtins.open, torch.save = traced_open, traced_save
+    reset_launches()
+    try:
+        cli_main.main(cfg)
+    finally:
+        builtins.open, torch.save = real_open, real_save
+        pdist.shutdown()
+    return {"rank": rank, "writes": sorted(set(writes)),
+            "launches": read_launches()}
+
+
+CHILD_JOBS = {"dist_train": child_dist_train, "dist_nccl": child_dist_nccl,
+              "cli": child_cli}
+
+
+def child(argv) -> int:
+    """``chip_smoke.py --dist-child JOB RANK WORLD INIT ARGS...``: one rank
+    of a slice-8 phase; its report is the last line of its output."""
+    job, rank, world, init, *rest = argv
+    engine.full_float32()
+    report = CHILD_JOBS[job](int(rank), int(world), init, *rest)
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+def spawn(job, world, *args):
+    """``world`` ranks of ``job`` as child processes, started at once, each
+    through the ``file://`` store of its own init file."""
+    os.makedirs(DIST_DIR, exist_ok=True)
+    init = os.path.join(DIST_DIR, f"{job}_{time.monotonic_ns()}.init")
+    return [subprocess.Popen(
+        [sys.executable, "-u", os.path.abspath(__file__), "--dist-child",
+         job, str(r), str(world), init, *map(str, args)], cwd=REPO_DIR,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+
+
+def reports(phase, procs, timeout=DIST_TIMEOUT):
+    """The children's reports; a child that fails or outlives ``timeout``
+    (in all) fails the phase, and every child still running is killed."""
+    deadline = time.perf_counter() + timeout
+    outs = [None] * len(procs)
+    try:
+        for i, p in enumerate(procs):
+            outs[i] = p.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for i, p in enumerate(procs):
+            if outs[i] is None:
+                p.kill()
+                outs[i] = p.communicate()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(
+            f"{phase}: children exited {[p.returncode for p in procs]}:\n"
+            + "\n".join(f"--- child {i}:\n{o[0][-2000:]}\n{o[1][-3000:]}"
+                        for i, o in enumerate(outs)))
+    return [json.loads(o[0].strip().splitlines()[-1]) for o, p in
+            zip(outs, procs)]
+
+
+def check_compute_mode():
+    """Two processes on one card need a compute mode that lets them."""
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    if "exclusive" in mode.lower():
+        raise AssertionError(f"dist phases: compute mode {mode!r} lets one "
+                             "process use the card")
+    return mode
+
+
+def run_dist_train():
+    """dist_train and dist_eval: two gloo ranks on the one card, each a
+    child; rank 0 then compares with one process."""
+    mode = check_compute_mode()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r0, r1 = reports("dist_train", spawn("dist_train", 2))
+    wall = time.perf_counter() - t0
+    res = r0["vs_single"]
+    emit("dist_train", config="scripts/train_MUSIC.sh (unet7, "
+         "resnet18dilated-256, hidsep/sig, bce, binary weighted masks, "
+         "float32, TF32 off, dft matmul), spread_weights", ranks=2,
+         backend="gloo through the host, two ranks sharing one card",
+         compute_mode=mode, batch_global=B, batch_per_rank=B // 2,
+         steps=["AV" if v else "AO" for v in DIST_SEQ],
+         step_ms_by_rank=[r0["step_ms"], r1["step_ms"]],
+         peak_mem_gib_by_rank=[r0["peak_mem_gib"], r1["peak_mem_gib"]],
+         losses=r0["losses"], single_losses=r0["single_losses"],
+         ranks_identical=[r0["ranks_identical"], r1["ranks_identical"]],
+         launches_by_rank=[r0["train_launches"], r1["train_launches"]],
+         tolerance=DIST_TOL, wall_s=wall, **res)
+    check_tol("dist_train", res, DIST_TOL)
+    if not (r0["ranks_identical"] and r1["ranks_identical"]):
+        raise AssertionError("dist_train: the ranks' states differ")
+    if r0["losses"] != r1["losses"]:
+        raise AssertionError(f"dist_train: the ranks report other losses "
+                             f"{r0['losses']} {r1['losses']}")
+    for r in (r0, r1):
+        expect_launches("dist_train", r["train_launches"],
+                        2 * len(DIST_SEQ), 0)
+    eval_steps = 2 * -(-DIST_EVAL_CLIPS // B)
+    emit("dist_eval", ranks=2, backend="gloo through the host, two ranks "
+         "sharing one card", clips=DIST_EVAL_CLIPS, batch_global=B,
+         eval_steps_per_rank=eval_steps,
+         wall_s_by_rank=[r0["eval_wall_s"], r1["eval_wall_s"]],
+         meters=r0["meters"], single_meters=r0["single_meters"],
+         meters_err=r0["meters_err"], meters_bit_equal=r0["meters_bit_equal"],
+         tolerance=DIST_METER_TOL,
+         launches_by_rank=[r0["eval_launches"], r1["eval_launches"]])
+    if r0["meters"] != r1["meters"] or \
+            not r0["meters_err"] <= DIST_METER_TOL:
+        raise AssertionError(f"dist_eval: meters {r0['meters']} / "
+                             f"{r1['meters']} against one process "
+                             f"{r0['single_meters']}")
+    for r in (r0, r1):
+        expect_launches("dist_eval", r["eval_launches"], 3 * eval_steps,
+                        eval_steps)
+    total = {p: {k: r0[p][k] + r1[p][k] for k in r0[p]}
+             for p in ("train_launches", "eval_launches")}
+    return ((total["train_launches"], 2 * len(DIST_SEQ)),
+            (total["eval_launches"], 2 * eval_steps))
+
+
+def run_dist_nccl():
+    """dist_nccl: a one-rank NCCL group through the distributed step and
+    eval sweep, against the same without a group, in one child."""
+    r, = reports("dist_nccl", spawn("dist_nccl", 1))
+    res = r["vs_single"]
+    eval_steps = 2 * -(-NCCL_EVAL_CLIPS // B)
+    emit("dist_nccl", backend=r["backend"], ranks=1, batch=B,
+         steps=["AV" if v else "AO" for v in NCCL_SEQ], losses=r["losses"],
+         single_losses=r["single_losses"],
+         state_bit_equal=r["state_bit_equal"], meters=r["meters"],
+         meters_err=r["meters_err"], meters_bit_equal=r["meters_bit_equal"],
+         tolerance=DIST_TOL, meter_tolerance="bit for bit",
+         train_launches=r["train_launches"],
+         eval_launches=r["eval_launches"], **res)
+    check_tol("dist_nccl", res, DIST_TOL)
+    if r["backend"] != "nccl" or not r["meters_bit_equal"]:
+        raise AssertionError(f"dist_nccl: backend {r['backend']}, meters "
+                             f"{r['meters_err']} off")
+    expect_launches("dist_nccl train", r["train_launches"],
+                    2 * len(NCCL_SEQ), 0)
+    expect_launches("dist_nccl eval", r["eval_launches"], 3 * eval_steps,
+                    eval_steps)
+    launches = {k: r["train_launches"][k] + r["eval_launches"][k]
+                for k in r["train_launches"]}
+    return launches, len(NCCL_SEQ) + eval_steps
+
+
+def cli_dist():
+    """cli_dist: ``main.main`` in two children that joined a gloo group
+    first, ``replicate`` and ``shard``, and in one child alone; all five
+    at once.  train_MUSIC.sh's flags with its float32 parity recipe
+    (``--dtype float32 --dft fft``).  Cuts: the manifests, the batch
+    2 x 16 -> 2 x 2, ``--num_iters`` 95001 -> CLI_DIST_ITERS + 1,
+    ``--eval_iter`` 1000 -> CLI_DIST_ITERS, ``--disp_iter`` 20 -> 1,
+    ``--val_repeat`` 12 -> 1, ``--num_vis`` 100 -> 0, ``--workers`` 4 -> 0,
+    ``--frame_decode pil``."""
+    manifest = os.path.join("data", "mini", "train.csv")
+    base = ["--mode", "train"] + script_flags("train_MUSIC.sh") + [
+        "--dtype", "float32", "--dft", "fft", "--av_list_train", manifest,
+        "--ao_list_train", manifest, "--list_val", manifest,
+        "--num_gpus", "2", "--batch_size_per_gpu", "2",
+        "--num_iters", str(CLI_DIST_ITERS + 1), "--eval_iter",
+        str(CLI_DIST_ITERS), "--disp_iter", "1", "--val_repeat", "1",
+        "--num_vis", "0", "--workers", "0", "--frame_decode", "pil"]
+    runs = {"replicate": 2, "shard": 2, "one": 1}
+    procs = {}
+    for name, world in runs.items():
+        ckpt = os.path.join(OUT_DIR, "cli_dist", name)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        argv = base + ["--ckpt", ckpt] + ([] if world == 1 else [
+            "--dist_nprocs", "2", "--dist_data", name])
+        procs[name] = spawn("cli", world, *argv)
+    t0 = time.perf_counter()
+    got = {name: reports(f"cli_dist {name}", ps)
+           for name, ps in procs.items()}
+    wall = time.perf_counter() - t0
+    cfg = parse_args(base)
+    with open(os.path.join(REPO_DIR, manifest)) as f:
+        n = cfg.val_repeat * sum(1 for line in f if line.count(",") >= 1)
+    eval_steps = 2 * -(-n // cfg.batch_size)
+    hist = {}
+    for name in runs:
+        run = os.path.join(OUT_DIR, "cli_dist", name, cfg.id)
+        with open(os.path.join(run, "history_latest.json")) as f:
+            hist[name] = json.load(f)
+        for branch in ("av", "ao"):
+            check_results(read_results(run, branch), hist[name],
+                          "val_" + branch, n)
+        for r in got[name]:
+            expect_launches(f"cli_dist {name}", r["launches"],
+                            2 * CLI_DIST_ITERS + 3 * eval_steps, eval_steps)
+        if name != "one" and got[name][1]["writes"]:
+            raise AssertionError(f"cli_dist {name}: rank 1 wrote "
+                                 f"{got[name][1]['writes']}")
+    losses = {name: h["train"]["err"] for name, h in hist.items()}
+    loss_err = max(abs(a / b - 1.0) for a, b in
+                   zip(losses["replicate"], losses["one"]))
+    meter_err = meters_err(meters_of(hist["replicate"]),
+                           meters_of(hist["one"]))
+    emit("cli_dist", argv=base, batch_global=cfg.batch_size,
+         iterations=CLI_DIST_ITERS, eval_steps_per_rank=eval_steps, clips=n,
+         wall_s=wall, losses=losses, loss_rel_err=loss_err,
+         meters={k: meters_of(h) for k, h in hist.items()},
+         meters_err=meter_err, rank1_writes={k: got[k][1]["writes"]
+                                             for k in ("replicate", "shard")},
+         rank0_writes={k: len(got[k][0]["writes"]) for k in runs},
+         tolerance=CLI_DIST_TOL,
+         backend="gloo through the host, two ranks sharing one card",
+         launches={k: [r["launches"] for r in v] for k, v in got.items()},
+         cuts={"manifests": "data/mini/train.csv", "batch": [32, 4],
+               "num_iters": [95001, CLI_DIST_ITERS + 1],
+               "eval_iter": [1000, CLI_DIST_ITERS], "disp_iter": [20, 1],
+               "val_repeat": [12, 1], "num_vis": [100, 0], "workers": [4, 0],
+               "dtype": ["bfloat16", "float32"], "dft": ["matmul", "fft"]})
+    if not (len(losses["replicate"]) == CLI_DIST_ITERS
+            and np.isfinite(losses["shard"]).all()
+            and loss_err <= CLI_DIST_TOL["loss_rel_err"]
+            and meter_err <= CLI_DIST_TOL["meters_err"]):
+        raise AssertionError(f"cli_dist: losses {losses}, meters off by "
+                             f"{meter_err}")
+    launches = {k: sum(r["launches"][k] for name in ("replicate", "shard")
+                       for r in got[name]) for k in got["one"][0]["launches"]}
+    return launches, 2 * 2 * (CLI_DIST_ITERS + eval_steps)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2358,6 +2872,11 @@ def main() -> int:
     clipatt_card_vs_cpu(dev, torch.Generator().manual_seed(SEED))
     decode = run_native()
     launches["cli_clipatt"], calls["cli_clipatt"] = cli_clipatt(decode)
+    # slice 8, in child processes, each from a generator of its own
+    (launches["dist_train"], calls["dist_train"]), \
+        (launches["dist_eval"], calls["dist_eval"]) = run_dist_train()
+    launches["dist_nccl"], calls["dist_nccl"] = run_dist_nccl()
+    launches["cli_dist"], calls["cli_dist"] = cli_dist()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2384,4 +2903,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(child(sys.argv[2:]) if sys.argv[1:2] == ["--dist-child"]
+             else main())

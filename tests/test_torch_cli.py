@@ -67,12 +67,6 @@ def test_dtype_and_remat_parse_as_the_jax_package(argv):
 
 @pytest.mark.parametrize("argv,item", [
     (["--use_pallas", "1"], "Flags that raise"),
-    (["--mesh_shape", "2"], "parallel/"),
-    (["--data_axis", "batch"], "parallel/"),
-    (["--dist_coordinator", "localhost:1234"], "parallel/"),
-    (["--dist_nprocs", "2"], "parallel/"),
-    (["--dist_procid", "1"], "parallel/"),
-    (["--dist_data", "shard"], "parallel/"),
 ])
 def test_unported_flags_raise_naming_the_roadmap_item(argv, item):
     with pytest.raises(NotImplementedError, match=re.escape(item)):

@@ -1,6 +1,9 @@
 """The port imports nothing of JAX and nothing of the JAX package: every
 module of avsep_tpu_torch, and chip_smoke.py, import in a fresh interpreter
-where ``jax``, ``flax`` and ``avsep_tpu`` are blocked in ``sys.modules``."""
+where ``jax``, ``flax`` and ``avsep_tpu`` are blocked in ``sys.modules``.
+The data-side modules added with ``parallel/`` (``data/scripts/``, the
+loader that holds ``ShardDataset``) also import where torch is blocked;
+tests/test_torch_data.py checks the rest of the data layer so."""
 
 import os
 import pkgutil
@@ -42,7 +45,11 @@ def test_port_and_chip_smoke_import_without_jax():
                  "data.loader", "utils.media", "serve", "separate_cli",
                  "inference", "sop_engine", "sop_main", "models.sop",
                  "models.synthesizer", "models.torch_export",
-                 "models.motion", "data.native"):
+                 "models.motion", "data.native", "parallel",
+                 "parallel.mesh", "parallel.distributed", "data.scripts",
+                 "data.scripts.post_process_csv", "data.scripts.extract_wav",
+                 "data.scripts.extract_optflow",
+                 "data.scripts.make_optical_video"):
         assert f"avsep_tpu_torch.{name}" in mods
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _PROBE, *mods], cwd=REPO,
@@ -65,3 +72,26 @@ def test_port_sources_do_not_name_the_jax_package_in_imports():
                     assert not any(w.split(".")[0] in ("jax", "flax",
                                                        "avsep_tpu")
                                    for w in words[1:2]), (path, s)
+
+
+_NO_TORCH = """
+import sys
+for name in ("torch", "jax", "jaxlib", "flax", "avsep_tpu"):
+    sys.modules[name] = None          # any import of them raises
+import importlib
+for mod in sys.argv[1:]:
+    importlib.import_module(mod)
+print("ok")
+"""
+
+
+def test_data_scripts_and_shard_loader_import_without_torch():
+    mods = ["avsep_tpu_torch.data.loader", "avsep_tpu_torch.data.scripts"] + [
+        f"avsep_tpu_torch.data.scripts.{m}" for m in (
+            "post_process_csv", "extract_wav", "extract_optflow",
+            "make_optical_video")]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _NO_TORCH, *mods], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
