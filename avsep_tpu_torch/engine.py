@@ -250,16 +250,18 @@ def to_device(batch: Dict, device: torch.device, drop=(), cfg=None,
     visual streams the branch does not read; ``cfg.audio_wire`` int16
     re-encodes the sources (``data/wire.py``).  Under a process group only
     the rank's rows go (``distributed.device_put_global``): ``mode``
-    ``replicate`` takes the rank's block of a global batch, ``shard`` the
-    whole batch; it defaults to ``cfg.dist_data`` (``replicate`` without a
-    ``cfg``).  A copy to a GPU goes from pinned memory without blocking
-    the host, ordered on the current stream."""
+    ``replicate`` takes the rank's block of a global batch, ``shard`` its
+    block of the process's batch (``cfg.dist_nprocs`` processes); it
+    defaults to ``cfg.dist_data`` (``replicate`` without a ``cfg``).  A
+    copy to a GPU goes from pinned memory without blocking the host,
+    ordered on the current stream."""
     skip = ("class", "audio_mix") + tuple(drop)
     host = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)
             and v.dtype != object and k not in skip}
     if mode is None:
         mode = cfg.dist_data if cfg is not None else "replicate"
-    host = pdist.device_put_global(host, mode)
+    host = pdist.device_put_global(
+        host, mode, procs=pdist.process_count(cfg) if cfg is not None else 1)
     if cfg is not None:
         host = encode_audio_wire(host, cfg)
     pinned = device.type == "cuda"

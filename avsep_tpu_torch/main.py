@@ -9,16 +9,19 @@ checkpoints.  The step is ``train.make_train_step``; the global batch is
 ``num_gpus * batch_size_per_gpu``.  The checkpoint carries the optimizer
 state (``checkpoint.py``).
 
-Data parallelism (``parallel/``): ``--dist_coordinator host:port
---dist_nprocs N --dist_procid i`` runs process i of N, one card each, and a
-step over the N ranks computes what one process computes on the global
-batch (``--dist_data replicate``: every process loads it and keeps its
-rows; ``shard``: each loads its own rows from a disjoint part of the
-dataset).  One process uses one card, so without these flags the whole
-global batch runs on it.
+Data parallelism (``parallel/``), with the JAX package's widths: the
+command line spans ``min(num_gpus, local cards)`` cards, or
+``--mesh_shape``'s, one rank per card (``launch.run`` starts them), and
+``--dist_coordinator host:port --dist_nprocs P --dist_procid i`` makes it
+process i of P, each spanning every local card.  A step over the ranks
+computes what one process computes on the global batch (``--dist_data
+replicate``: every rank loads it and keeps its rows; ``shard``, with P > 1:
+each process's ranks load the process's rows from a disjoint part of the
+dataset).
 
-``main(cfg)`` runs on ``cuda`` and raises without a GPU; ``main(cfg,
-device="cpu")`` runs on the CPU.  The command line has no device flag.
+``main(cfg)`` is one rank: it runs on ``cuda`` (the rank's card) and raises
+without a GPU; ``main(cfg, device="cpu")`` runs on the CPU.  The command
+line has no device flag.
 
 This module imports torch, and the modules that do, inside its functions
 only: a process loader's worker starts by importing the parent's main
@@ -43,8 +46,8 @@ from avsep_tpu_torch.utils.media import makedirs
 from avsep_tpu_torch.utils.meters import AverageMeter, new_history
 
 
-def build_loaders(cfg: Config, val_only: bool = False, rank: int = 0,
-                  world: int = 1):
+def build_loaders(cfg: Config, val_only: bool = False,
+                  process_index: int = 0, process_count: int = 1):
     """AV / AO / val loaders (reference main.py:633-657); ``val_only``
     skips the train datasets, so eval mode needs no train manifests.
     ``workers > 0`` gives process loaders for training (the reference's
@@ -52,24 +55,27 @@ def build_loaders(cfg: Config, val_only: bool = False, rank: int = 0,
     loader has 4 workers whatever ``workers`` says, as the reference
     (main.py:656).
 
-    Process ``rank`` of ``world``: under ``dist_data=replicate`` every
-    process runs these loaders alike (deterministic datasets,
-    order-preserving loaders) and keeps its own rows of each batch
-    (``engine.to_device``); under ``shard`` each process's train loaders
-    draw ``batch/world`` rows from a disjoint ``1/world`` of the dataset
-    (``ShardDataset``), so a global batch never holds a sample twice and
-    every sample comes once per global epoch.  The val loader stays
-    replicated, so the eval meters do not depend on the processes."""
-    shard = world > 1 and cfg.dist_data == "shard"
-    train_bs = cfg.batch_size // world if shard else cfg.batch_size
+    Process ``process_index`` of ``process_count`` (the JAX package's,
+    ``--dist_procid`` of ``--dist_nprocs``; each of its ranks runs these
+    loaders): under ``dist_data=replicate`` every rank runs them alike
+    (deterministic datasets, order-preserving loaders) and keeps its own
+    rows of each batch (``engine.to_device``); under ``shard``, with more
+    than one process, each process's train loaders draw
+    ``batch/process_count`` rows from a disjoint ``1/process_count`` of the
+    dataset (``ShardDataset``), so a global batch never holds a sample
+    twice and every sample comes once per global epoch.  The val loader
+    stays replicated, so the eval meters do not depend on the ranks."""
+    shard = process_count > 1 and cfg.dist_data == "shard"
+    train_bs = cfg.batch_size // process_count if shard else cfg.batch_size
 
     def maybe_shard(ds):
         if not shard:
             return ds
-        sh = ShardDataset(ds, rank, world)
+        sh = ShardDataset(ds, process_index, process_count)
         if len(sh) < train_bs:
             raise ValueError(
-                f"dist_data=shard: {len(ds)} samples / {world} processes "
+                f"dist_data=shard: {len(ds)} samples / {process_count} "
+                "processes "
                 f"leaves {len(sh)} per process — fewer than the "
                 f"per-process batch {train_bs} (raise train_repeat or "
                 f"use dist_data=replicate)")
@@ -97,10 +103,11 @@ def build_loaders(cfg: Config, val_only: bool = False, rank: int = 0,
 
 
 def main(cfg: Config, device=None) -> None:
-    """Train or evaluate as ``cfg.mode`` says.  With ``dist_nprocs > 1``
-    this process joins the group first (``distributed.maybe_initialize``,
-    before anything touches a card) and leaves it at the end, also on an
-    error, so its peers do not wait in a collective."""
+    """Train or evaluate as ``cfg.mode`` says, as one rank.  With
+    ``dist_nprocs > 1`` and no group yet this process joins one first
+    (``distributed.maybe_initialize``, before anything touches a card) and
+    leaves it at the end, also on an error, so its peers do not wait in a
+    collective; a rank of ``launch.run`` is in its group already."""
     from avsep_tpu_torch.parallel import distributed as pdist
     owned = pdist.maybe_initialize(cfg, device=device)
     try:
@@ -127,8 +134,9 @@ def _main(cfg: Config, device) -> None:
     print("Model ID: {}".format(cfg.id))
     if mesh.size > 1:
         print(f"[dist] rank {mesh.rank} of a {mesh.size}-wide "
-              f"'{mesh.axis_name}' axis on {dev}, dist_data "
-              f"{cfg.dist_data}")
+              f"'{mesh.axis_name}' axis on {dev}, process "
+              f"{pdist.process_index(cfg)} of {pdist.process_count(cfg)}, "
+              f"dist_data {cfg.dist_data}")
     cfg = cfg.replace(ckpt=os.path.join(cfg.ckpt, cfg.id))
     if pdist.is_primary():
         makedirs(cfg.ckpt, remove=False)
@@ -150,7 +158,9 @@ def _main(cfg: Config, device) -> None:
             print("Recovered from history.")
 
     av_loader, ao_loader, val_loader = build_loaders(
-        cfg, val_only=cfg.mode == "eval", rank=mesh.rank, world=mesh.size)
+        cfg, val_only=cfg.mode == "eval",
+        process_index=pdist.process_index(cfg),
+        process_count=pdist.process_count(cfg))
 
     if cfg.mode == "eval":
         if not cfg.load_ckpt:
@@ -293,7 +303,8 @@ def _train_loop(cfg, state, history, best_holder, start_i, steps, use_vis_fn,
 
 if __name__ == "__main__":
     from avsep_tpu_torch.engine import full_float32
+    from avsep_tpu_torch.parallel import launch
     full_float32()
     args = parse_args()
     np.random.seed(args.seed)
-    main(args)
+    launch.run(main, args)

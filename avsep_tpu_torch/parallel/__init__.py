@@ -1,9 +1,10 @@
-"""avsep_tpu_torch.parallel: data parallelism over processes, one card each.
+"""avsep_tpu_torch.parallel: data parallelism over ranks, one card each.
 
-Port of ``avsep_tpu/parallel/``: the data mesh (``mesh.py``) and the
-process group, batch rows, collectives and primary-only writes
+Port of ``avsep_tpu/parallel/``: the data mesh (``mesh.py``), the process
+group, batch rows, collectives and primary-only writes
 (``distributed.py``) behind ``--mesh_shape``, ``--data_axis`` and the
-``--dist_*`` flags.
+``--dist_*`` flags, and the launcher that starts one rank per card a
+process spans (``launch.py``, the JAX package's width rules).
 """
 
 from avsep_tpu_torch.parallel.mesh import (  # noqa: F401

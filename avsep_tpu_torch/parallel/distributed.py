@@ -1,22 +1,28 @@
-"""Data parallelism over processes, one card each, with ``torch.distributed``.
+"""Data parallelism over ranks, one card each, with ``torch.distributed``.
 
 Port of ``avsep_tpu/parallel/distributed.py``.  The JAX package puts one
 data axis over every device of every process and shards the batch on dim 0;
 under ``jax.jit`` that is the program of the global batch, with the
 gradient ``psum`` and the global BatchNorm statistics inserted by XLA.  The
-port runs one process per card and makes a step over P ranks compute what
+port runs one rank per card and makes a step over W ranks compute what
 one process computes on the whole global batch, up to float32 summation
-order:
+order.  A *process* is the JAX package's: ``--dist_procid`` of
+``--dist_nprocs`` P (one per host).  A process that spans L cards runs L
+ranks (``parallel/launch.py``), so the group has W = P * L ranks, and
+process ``procid``'s ranks are ``procid * L .. procid * L + L - 1``, the
+JAX device order ``(process_index, id)``:
 
-* **initialization**: :func:`maybe_initialize` starts the group from the
-  ``--dist_*`` flags (NCCL for CUDA, gloo for the CPU) and pins the rank to
-  ``cuda:{rank % device_count}`` before anything is allocated;
-  ``engine.resolve_device`` then returns that card.
+* **initialization**: :func:`join` pins the rank's card before anything is
+  allocated and joins the group (NCCL for CUDA, gloo for the CPU);
+  :func:`maybe_initialize` does so from the ``--dist_*`` flags for a
+  process that is one rank (one process per card), the launcher for each
+  of its ranks.  ``engine.resolve_device`` then returns that card.
 * **batch formation**: :func:`device_put_global` returns the rank's rows.
   ``replicate``: every rank runs the same deterministic loader, holds the
-  full global batch and keeps rows ``[r*B/P, (r+1)*B/P)``.  ``shard``: each
-  rank loads its own ``B/P`` rows from a disjoint ``data.loader.
-  ShardDataset``; the global batch is the ranks' rows in rank order.
+  full global batch and keeps rows ``[r*B/W, (r+1)*B/W)``.  ``shard`` (only
+  when P > 1, as in JAX): each process's ranks load the process's ``B/P``
+  rows from a disjoint ``data.loader.ShardDataset`` and each keeps its
+  block of them; the global batch is the processes' rows in process order.
 * **randomness**: :func:`rank_rand` draws for the global batch from a
   generator seeded alike on every rank and keeps the rank's rows, so the
   draws of a replicate run are the one-process run's.
@@ -30,8 +36,8 @@ order:
   zero-padded buffer that each rank fills with its rows), and
   :func:`broadcast_` makes every rank start from rank 0's state.
 * **files**: history, ``results.csv``, plots, media and checkpoints are
-  written by the primary rank (:func:`is_primary`); a checkpoint save is
-  followed by :func:`barrier`, and every rank restores.
+  written by the primary rank (:func:`is_primary`, global rank 0); a
+  checkpoint save is followed by :func:`barrier`, and every rank restores.
 
 Without a group every function here is the single-process identity, so
 the one-card path runs no collective.  A group of one rank (possible only
@@ -67,12 +73,25 @@ def rank() -> int:
 
 
 def is_primary() -> bool:
+    """Global rank 0, the one that writes."""
     return rank() == 0
 
 
-def is_multihost() -> bool:
-    """More than one process: the JAX package's name, kept."""
-    return world_size() > 1
+def process_count(cfg) -> int:
+    """The JAX package's ``process_count``: ``--dist_nprocs`` (P)."""
+    return max(1, int(cfg.dist_nprocs))
+
+
+def process_index(cfg) -> int:
+    """The JAX package's ``process_index`` of this rank: ``rank // L``,
+    with L = W / P ranks per process."""
+    return rank() // max(1, world_size() // process_count(cfg))
+
+
+def is_multihost(cfg) -> bool:
+    """More than one process (P > 1), as in the JAX package, whatever the
+    ranks per process."""
+    return process_count(cfg) > 1
 
 
 def local_device_index() -> int:
@@ -80,30 +99,40 @@ def local_device_index() -> int:
     return rank() % torch.cuda.device_count()
 
 
+def join(init: str, rank: int, world: int, card: int = 0, device=None,
+         backend: Optional[str] = None,
+         timeout: datetime.timedelta = TIMEOUT) -> None:
+    """Join the group at ``init`` (a ``tcp://`` or ``file://`` address) as
+    ``rank`` of ``world``.  On a GPU ``cuda:{card % device_count}`` is made
+    current first, before the group allocates anything; ``backend``
+    defaults to gloo when ``device`` is the CPU, else NCCL."""
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if not cpu:
+        torch.cuda.set_device(int(card) % torch.cuda.device_count())
+    dist.init_process_group(backend or ("gloo" if cpu else "nccl"),
+                            init_method=init, world_size=int(world),
+                            rank=int(rank), timeout=timeout)
+    print(f"[dist] rank {rank}/{world} up on "
+          f"{'cpu' if cpu else torch.cuda.current_device()}: backend "
+          f"{dist.get_backend()}", flush=True)
+
+
 def maybe_initialize(cfg, device=None, backend: Optional[str] = None,
                      timeout: datetime.timedelta = TIMEOUT) -> bool:
     """Start the process group from ``--dist_coordinator host:port``,
-    ``--dist_nprocs`` and ``--dist_procid`` when ``dist_nprocs > 1``.
-    Returns whether it started one: it does nothing for one process or
-    when a group exists already (a caller that starts the group itself
-    pins its card itself).  ``backend`` defaults to ``gloo`` when
-    ``device`` is the CPU, else NCCL; on a GPU the rank's card is made
-    current before the group allocates anything."""
+    ``--dist_nprocs`` and ``--dist_procid`` when ``dist_nprocs > 1``, this
+    process being one rank on card ``procid % device_count``.  Returns
+    whether it started one: it does nothing for one process or when a
+    group exists already (the launcher's ranks, or a caller that starts
+    the group itself and pins its card itself)."""
     if int(cfg.dist_nprocs) <= 1 or active():
         return False
     if not cfg.dist_coordinator:
         raise ValueError("--dist_nprocs > 1 requires --dist_coordinator "
                          "host:port (the address of process 0)")
-    cpu = device is not None and torch.device(device).type == "cpu"
-    if not cpu:
-        torch.cuda.set_device(int(cfg.dist_procid)
-                              % torch.cuda.device_count())
-    dist.init_process_group(backend or ("gloo" if cpu else "nccl"),
-                            init_method=f"tcp://{cfg.dist_coordinator}",
-                            world_size=int(cfg.dist_nprocs),
-                            rank=int(cfg.dist_procid), timeout=timeout)
-    print(f"[dist] process {rank()}/{world_size()} up: backend "
-          f"{dist.get_backend()}")
+    join(f"tcp://{cfg.dist_coordinator}", int(cfg.dist_procid),
+         int(cfg.dist_nprocs), card=int(cfg.dist_procid), device=device,
+         backend=backend, timeout=timeout)
     return True
 
 
@@ -117,17 +146,22 @@ def shutdown() -> None:
 
 def validate_global_batch(cfg) -> None:
     """Fail fast on a batch the ranks cannot divide (the per-rank batch
-    would be floored silently) and on an unknown ``dist_data``.  No-op for
-    one process.  Shared by ``main.main`` and ``sop_main.main``."""
-    P = world_size()
-    if P <= 1:
+    would be floored silently) and on an unknown ``dist_data``: the JAX
+    package's two checks, the global batch across the W ranks and, under
+    ``shard``, across the P processes.  No-op for one rank.  Shared by
+    ``main.main`` and ``sop_main.main``."""
+    W = world_size()
+    if W <= 1:
         return
     if cfg.dist_data not in DIST_DATA:
         raise ValueError(f"--dist_data {cfg.dist_data!r}: one of "
                          f"{DIST_DATA}")
-    if cfg.batch_size % P:
+    if cfg.batch_size % W:
         raise ValueError(f"global batch {cfg.batch_size} must divide "
-                         f"across {P} devices")
+                         f"across {W} devices")
+    if cfg.dist_data == "shard" and cfg.batch_size % process_count(cfg):
+        raise ValueError("dist_data=shard needs batch_size divisible "
+                         "by the process count")
 
 
 def rank_slice(n_local: int) -> slice:
@@ -136,19 +170,26 @@ def rank_slice(n_local: int) -> slice:
     return slice(r * n_local, (r + 1) * n_local)
 
 
-def device_put_global(batch: Dict, mode: str = "replicate") -> Dict:
-    """The rows of a batch (numpy arrays or tensors) this rank computes: in
-    ``replicate`` the rank's block of the global batch every rank holds,
-    in ``shard`` the rank's own batch, whole."""
-    P = world_size()
-    if P == 1 or mode == "shard":
+def device_put_global(batch: Dict, mode: str = "replicate",
+                      procs: int = 1) -> Dict:
+    """The rows of a batch (numpy arrays or tensors) this rank computes.
+    ``replicate``: the batch is the global one, and the rank keeps its
+    block of it.  ``shard`` over ``procs`` processes: the batch is this
+    process's ``1/procs`` of the global one, and the rank keeps its block
+    of that among the process's ranks (all of it for one rank per
+    process); with one process ``shard`` is ``replicate``."""
+    W = world_size()
+    parts = W // procs if mode == "shard" else W
+    if parts == 1:
         return batch
+    r = rank() % parts
     out = {}
     for k, v in batch.items():
-        if v.shape[0] % P:
+        if v.shape[0] % parts:
             raise ValueError(f"{k}: {v.shape[0]} rows do not divide "
-                             f"across {P} ranks")
-        out[k] = v[rank_slice(v.shape[0] // P)]
+                             f"across {parts} ranks")
+        n = v.shape[0] // parts
+        out[k] = v[r * n:(r + 1) * n]
     return out
 
 

@@ -2,11 +2,13 @@
 
 Port of ``avsep_tpu/parallel/mesh.py``.  The JAX package builds a 1-axis
 ``jax.sharding.Mesh`` over its devices and shards the batch on dim 0.  The
-port runs one process per card (``parallel/distributed.py``), so the data
-axis has one position per rank and its width is the world size: one
-process spans one card, where a JAX process spans ``min(num_gpus, local
-devices)``.  ``num_gpus`` keeps its meaning in the batch size, the global
-batch being ``num_gpus * batch_size_per_gpu``.
+port runs one rank per card, so the data axis has one position per rank
+and its width is the world size: the launch's ``P * L``, P processes of L
+cards each, L set by the JAX package's width rules
+(``parallel/launch.py``: ``min(num_gpus, local cards)`` for ``main``,
+every local card for ``sop_main``, ``--mesh_shape``, every card of every
+process under ``--dist_nprocs``).  ``num_gpus`` also keeps its meaning in
+the batch size, the global batch being ``num_gpus * batch_size_per_gpu``.
 """
 
 from __future__ import annotations
@@ -35,7 +37,10 @@ def mesh_from_config(cfg, n_devices: Optional[int] = None) -> Mesh:
     """The mesh of ``--mesh_shape`` (one axis; its width, no larger than
     the devices there are, and in a multi-process job all of them) and
     ``--data_axis`` (its name).  ``n_devices`` is the caller's default
-    width (None: every device, one per rank)."""
+    width (None: every device of the launch, one per rank).  The launcher
+    checks ``--mesh_shape`` against the cards before it starts a rank
+    (``launch.local_width``, the same errors); here the devices are the
+    group's ranks."""
     if cfg.mesh_shape:
         if len(cfg.mesh_shape) != 1:
             raise ValueError(

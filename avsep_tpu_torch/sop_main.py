@@ -18,10 +18,12 @@ then ``evaluate.score_masks``: 3 ``frame_window`` launches and 1
 ``overlap_add_normalize`` per step on a CUDA batch; a train step launches
 ``frame_window`` twice.
 
-Data parallelism as in ``main.py`` (``parallel/``): ``--dist_coordinator
---dist_nprocs --dist_procid`` run one process per card, the step's
-gradients, metrics and BatchNorm statistics those of the global batch; the
-eval sweep is replicated and gathered, and the primary rank writes.
+Data parallelism as in ``main.py`` (``parallel/``), over every local card
+as the JAX package's ``sop_main`` (or ``--mesh_shape``'s), one rank per
+card, and under ``--dist_coordinator --dist_nprocs --dist_procid`` over
+every card of every process: the step's gradients, metrics and BatchNorm
+statistics those of the global batch; the eval sweep is replicated and
+gathered, and the primary rank writes.
 
 The entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
 and raise without a GPU; the command line has no device flag.  Torch is
@@ -252,7 +254,7 @@ def _main(cfg: Config, device) -> None:
 
     dev = resolve_device(device)
     pdist.validate_global_batch(cfg)
-    mesh = mesh_from_config(cfg)
+    mesh_from_config(cfg)          # --mesh_shape against the ranks
     print("Model ID: {}".format(cfg.id))
     cfg = cfg.replace(ckpt=os.path.join(cfg.ckpt, cfg.id))
     if pdist.is_primary():
@@ -275,7 +277,9 @@ def _main(cfg: Config, device) -> None:
             print("Recovered from history.")
 
     av_loader, ao_loader, val_loader = build_loaders(
-        cfg, val_only=cfg.mode == "eval", rank=mesh.rank, world=mesh.size)
+        cfg, val_only=cfg.mode == "eval",
+        process_index=pdist.process_index(cfg),
+        process_count=pdist.process_count(cfg))
 
     if cfg.mode == "eval":
         if not cfg.load_ckpt:
@@ -343,9 +347,10 @@ def _main(cfg: Config, device) -> None:
 
 if __name__ == "__main__":
     from avsep_tpu_torch.engine import full_float32
+    from avsep_tpu_torch.parallel import launch
     full_float32()
     args = parse_args()
     if args.fusion_type not in ("Base", "MatchAtt"):
         args = args.replace(fusion_type="Base")
     np.random.seed(args.seed)
-    main(args)
+    launch.run(main, args)

@@ -182,6 +182,25 @@ script exits non-zero before printing any result.
    in one process, at once: iterations 1 to 3 and an eval; the replicate
    history within ``CLI_DIST_TOL`` of one process's, rank 1 writing
    nothing under the checkpoint directory.
+19. cli_launch (avsep_tpu_torch/parallel/launch.py: one command over the
+   cards it names, one rank per card), train_MUSIC.sh's float32 recipe
+   with cli_dist's cuts and ``--num_gpus 2`` (B = 2 x 2):
+   cli_launch_clamp: ``python -m avsep_tpu_torch.main`` shown one card
+   (CUDA_VISIBLE_DEVICES) prints width 1 and runs in its own process (its
+   own counters see every launch); its history within ``CLI_DIST_TOL`` of
+   ``main.main`` alone in a child.
+   cli_launch_gloo: ``launch.run`` with ``n_local=2`` and gloo, two ranks
+   sharing the card, iterations 1 to 5: per-rank ms per AV and AO step,
+   peak memory and launches (2 per train step, 3 + 1 per eval step), TF32
+   off in each rank, rank 1 writing nothing, iterations 1 to 3 and the
+   eval within ``CLI_DIST_TOL`` of the same reference.
+   cli_launch_fail (run beside cli_launch_clamp): a launch whose rank 1
+   raises exits non-zero within ``LAUNCH_FAIL_DEADLINE_S`` and leaves no
+   rank.
+   cli_launch_nccl: with two or more cards, ``--num_gpus 2`` as two NCCL
+   ranks on two cards, as cli_launch_gloo; with one card, a line saying it
+   did not run and why.  ``python3 chip_smoke.py --only cli_launch`` runs
+   this phase alone (for a machine with several cards).
 Then the kernel table as one JSON line (launches summed over the main
 paths' runs, by path and per call), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -199,6 +218,7 @@ import shlex
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -211,6 +231,7 @@ from avsep_tpu_torch.ops import kernels
 from avsep_tpu_torch.ops.stft import _reflect_pad, istft_denominator
 from avsep_tpu_torch.ops.warp import unwarp_mask
 from avsep_tpu_torch.parallel import distributed as pdist
+from avsep_tpu_torch.parallel import launch
 from avsep_tpu_torch.utils.meters import new_history
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and the float32 rate outside the
@@ -1389,7 +1410,7 @@ finally:
 """
 
 
-def run_module(phase, module, argv, timeout=600):
+def run_module(phase, module, argv, timeout=600, env=None):
     """``python -m module argv...`` in a child process (through
     ``runpy.run_module``, what ``-m`` runs), from the repository's root;
     the child prints its kernels' launch counts and both TF32 flags as its
@@ -1398,7 +1419,7 @@ def run_module(phase, module, argv, timeout=600):
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-u", "-c", _CHILD, module, *argv],
                           cwd=REPO_DIR, capture_output=True, text=True,
-                          timeout=timeout)
+                          timeout=timeout, env=env)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"{phase}: python -m {module} exited "
@@ -2543,18 +2564,12 @@ def child_dist_nccl(rank, world, init):
                                         p0)}
 
 
-def child_cli(rank, world, init, *argv):
-    """cli_dist: ``main.main`` on this rank of a gloo group the process
-    joined first (``maybe_initialize`` is then a no-op), or alone for a
-    world of 1; the files it opened for writing under ``--ckpt`` and its
-    launches."""
+@contextlib.contextmanager
+def recorded_writes(root):
+    """Yields the list of files opened for writing (``open`` in a writing
+    mode, ``torch.save``) under ``root`` while the block runs."""
     import builtins
-
-    from avsep_tpu_torch import main as cli_main
-    if world > 1:
-        _join(rank, world, "gloo", init)
-    cfg = parse_args(list(argv))
-    root = os.path.realpath(cfg.ckpt)
+    root = os.path.realpath(root)
     writes = []
     real_open, real_save = builtins.open, torch.save
 
@@ -2573,14 +2588,51 @@ def child_cli(rank, world, init, *argv):
         return real_save(obj, f, *a, **kw)
 
     builtins.open, torch.save = traced_open, traced_save
-    reset_launches()
     try:
-        cli_main.main(cfg)
+        yield writes
     finally:
         builtins.open, torch.save = real_open, real_save
+
+
+@contextlib.contextmanager
+def timed_decode():
+    """Yields the list of seconds each ``MusicMixDataset`` item took to
+    load (decode, mix) while the block runs, in any loader thread."""
+    from avsep_tpu_torch.data.dataset import MusicMixDataset
+    getitem = MusicMixDataset.__getitem__
+    seconds = []
+
+    def timed(self, index):
+        t0 = time.perf_counter()
+        item = getitem(self, index)
+        seconds.append(time.perf_counter() - t0)
+        return item
+
+    MusicMixDataset.__getitem__ = timed
+    try:
+        yield seconds
+    finally:
+        MusicMixDataset.__getitem__ = getitem
+
+
+def child_cli(rank, world, init, *argv):
+    """cli_dist: ``main.main`` on this rank of a gloo group the process
+    joined first (``maybe_initialize`` is then a no-op), or alone for a
+    world of 1; the files it opened for writing under ``--ckpt`` and its
+    launches."""
+    from avsep_tpu_torch import main as cli_main
+    if world > 1:
+        _join(rank, world, "gloo", init)
+    cfg = parse_args(list(argv))
+    reset_launches()
+    try:
+        with recorded_writes(cfg.ckpt) as writes, timed_decode() as decoded:
+            cli_main.main(cfg)
+    finally:
         pdist.shutdown()
     return {"rank": rank, "writes": sorted(set(writes)),
-            "launches": read_launches()}
+            "launches": read_launches(), "decoded": len(decoded),
+            "decode_s": sum(decoded)}
 
 
 CHILD_JOBS = {"dist_train": child_dist_train, "dist_nccl": child_dist_nccl,
@@ -2804,6 +2856,354 @@ def cli_dist():
     return launches, 2 * 2 * (CLI_DIST_ITERS + eval_steps)
 
 
+# ------------------------------------------------------------- slice 9
+# cli_launch: one command over the cards it names (parallel/launch.py).
+# The launched ranks are children of a ``--launch-child`` process of this
+# script, which calls ``launch.run`` as the command lines do; each rank
+# writes a report (its launches, step times, peak memory, writes, TF32
+# flags) to a file.
+
+LAUNCH_DIR = os.path.join(OUT_DIR, "launch")
+# (b) and (c) run iterations 1 .. CLI_LAUNCH_ITERS, so each rank times a
+# second, warm AV step; their history is held against one process over
+# iterations 1 .. CLI_DIST_ITERS, which hold the eval
+CLI_LAUNCH_ITERS = 5
+# (b)'s failing launch, run beside (a): rank 1 raises once both ranks are
+# up, rank 0 sleeps; the launcher must exit non-zero within this of its
+# start and leave no rank.  The ranks' start-up (a spawned interpreter
+# importing this script) read 14 to 29 s on the H100 machine, the stop
+# itself takes at most the grace
+LAUNCH_FAIL_DEADLINE_S = launch.STOP_GRACE_S + 80
+
+
+def launch_entry(out_dir, cfg, device=None):
+    """One launched rank of cli_launch: ``main.main`` with its kernels'
+    launches counted, each train step timed (synchronized host clock), the
+    samples its host loaders decoded and their seconds (summed over the
+    loader's threads), its peak memory and the files it opened for writing
+    under ``--ckpt``; the report goes to OUT_DIR/rank{r}.json."""
+    import torch.distributed as dist
+
+    from avsep_tpu_torch import main as cli_main
+    times = []
+    make = train.make_train_step
+
+    def timed_make(cfg_, nets, use_vis, *a, **kw):
+        step = make(cfg_, nets, use_vis, *a, **kw)
+
+        def timed(*sa, **skw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*sa, **skw)
+            torch.cuda.synchronize()
+            times.append(["AV" if use_vis else "AO",
+                          1e3 * (time.perf_counter() - t0)])
+            return out
+        return timed
+
+    train.make_train_step = timed_make
+    rank, world = pdist.rank(), pdist.world_size()
+    backend = dist.get_backend()
+    card = torch.cuda.current_device()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with recorded_writes(cfg.ckpt) as writes, timed_decode() as decoded:
+        cli_main.main(cfg, device)
+    report = {"rank": rank, "world": world, "backend": backend,
+              "card": card, "card_name": torch.cuda.get_device_name(card),
+              "pid": os.getpid(), "launches": read_launches(),
+              "step_ms": times, "writes": sorted(set(writes)),
+              "decoded": len(decoded), "decode_s": sum(decoded),
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "tf32": [torch.backends.cudnn.allow_tf32,
+                       torch.backends.cuda.matmul.allow_tf32]}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def launch_fail_entry(out_dir, cfg, device=None):
+    """A launched rank that writes its pid to OUT_DIR/rank{r}.pid and
+    waits for the others to have written theirs, then raises on rank 1 and
+    sleeps on the others (only the launcher ends them)."""
+    rank = pdist.rank()
+    with open(os.path.join(out_dir, f"rank{rank}.pid"), "w") as f:
+        f.write(str(os.getpid()))
+    pdist.barrier()
+    if rank == 1:
+        raise RuntimeError("rank 1 fails on purpose")
+    time.sleep(600)
+
+
+def child_launch(argv) -> int:
+    """``chip_smoke.py --launch-child KIND N_LOCAL BACKEND OUT ARGV...``:
+    TF32 off (as the command lines' ``__main__``), then ``launch.run`` of
+    :func:`launch_entry` (KIND ``run``) or :func:`launch_fail_entry`
+    (``fail``), wrapped as ``main.main``, on ``parse_args(ARGV)``; N_LOCAL
+    0 and BACKEND ``none`` leave the launcher's defaults (the cards there
+    are, NCCL)."""
+    import functools
+
+    from avsep_tpu_torch import main as cli_main
+    kind, n_local, backend, out_dir, *argv = argv
+    engine.full_float32()
+    fn = {"run": launch_entry, "fail": launch_fail_entry}[kind]
+    entry = functools.update_wrapper(functools.partial(fn, out_dir),
+                                     cli_main.main)
+    launch.run(entry, parse_args(argv), n_local=int(n_local) or None,
+               backend=None if backend == "none" else backend)
+    return 0
+
+
+def launch_child(kind, n_local, backend, name, argv, one_card):
+    """Starts a ``--launch-child`` process reporting under LAUNCH_DIR/name;
+    ``one_card`` shows it the first card alone (CUDA_VISIBLE_DEVICES)."""
+    out = os.path.join(LAUNCH_DIR, name)
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    env = dict(os.environ)
+    if one_card:
+        env["CUDA_VISIBLE_DEVICES"] = env.get(
+            "CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    return out, subprocess.Popen(
+        [sys.executable, "-u", os.path.abspath(__file__), "--launch-child",
+         kind, str(n_local), backend, out, *argv], cwd=REPO_DIR, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def launch_line(out):
+    lines = [ln for ln in out.splitlines() if ln.startswith("[launch]")]
+    if len(lines) != 1:
+        raise AssertionError(f"cli_launch: {len(lines)} launch lines:\n"
+                             f"{out[-3000:]}")
+    return lines[0]
+
+
+def _gone(pid):
+    """The process has exited (it is absent, or a zombie nobody reaped)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except FileNotFoundError:
+        return True
+
+
+def _history_err(got, want, iters):
+    """Loss history (first ``iters`` entries) and eval meters of ``got``
+    against ``want``, relative."""
+    first = list(range(1, iters + 1))
+    if got["train"]["iter"][:iters] != first or \
+            want["train"]["iter"][:iters] != first:
+        raise AssertionError(f"cli_launch: iterations {got['train']['iter']}"
+                             f" against {want['train']['iter']}")
+    loss = max(abs(a / b - 1.0) for a, b in
+               zip(got["train"]["err"][:iters], want["train"]["err"][:iters]))
+    return loss, meters_err(meters_of(got), meters_of(want))
+
+
+def _ranks_of(phase, out_dir, proc, width, timeout=DIST_TIMEOUT):
+    """A ``--launch-child run``'s launch line and its ranks' reports."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"{phase}: the launch exited {proc.returncode}"
+                             f":\n{out[-3000:]}\n{err[-3000:]}")
+    ranks = []
+    for r in range(width):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return launch_line(out), ranks
+
+
+def _check_ranks(phase, ranks, backend, iters, eval_steps):
+    for r in ranks:
+        expect_launches(f"{phase} rank {r['rank']}", r["launches"],
+                        2 * iters + 3 * eval_steps, eval_steps)
+        if r["backend"] != backend or any(r["tf32"]):
+            raise AssertionError(f"{phase} rank {r['rank']}: backend "
+                                 f"{r['backend']}, TF32 {r['tf32']}")
+    if ranks[1]["writes"]:
+        raise AssertionError(f"{phase}: rank 1 wrote {ranks[1]['writes']}")
+
+
+def _step_ms(ranks):
+    return [{k: [round(ms, 3) for kind, ms in r["step_ms"] if kind == k]
+             for k in ("AV", "AO")} for r in ranks]
+
+
+def cli_launch():
+    """cli_launch, in three parts, with train_MUSIC.sh's flags in float32
+    and cli_dist's cuts, ``--num_gpus 2`` (B = 2 x 2):
+
+    (a) the clamp: ``python -m avsep_tpu_torch.main`` shown one card
+        starts no child (its own process counts the launches) and prints
+        width 1; its history against ``main.main`` alone in a child (the
+        reference, which runs iterations 1 .. CLI_LAUNCH_ITERS and counts
+        the samples its loaders decode);
+    (b) the spawn path on one card: ``launch.run`` with ``n_local=2`` and
+        gloo, two ranks sharing the card, iterations 1 .. CLI_LAUNCH_ITERS:
+        per-rank step ms, peak memory, launches, samples decoded by each
+        rank's loaders against the reference's, the history against the
+        reference, rank 1 writing nothing; and, run beside (a), a launch
+        whose rank 1 raises must exit non-zero within
+        LAUNCH_FAIL_DEADLINE_S and leave no rank;
+    (c) distinct cards, where there are two or more: ``--num_gpus 2`` as
+        two NCCL ranks on two cards, as (b).
+
+    Returns the launches and calls by path, one path per rank."""
+    manifest = os.path.join("data", "mini", "train.csv")
+    base = ["--mode", "train"] + script_flags("train_MUSIC.sh") + [
+        "--dtype", "float32", "--dft", "fft", "--av_list_train", manifest,
+        "--ao_list_train", manifest, "--list_val", manifest,
+        "--num_gpus", "2", "--batch_size_per_gpu", "2",
+        "--eval_iter", str(CLI_DIST_ITERS), "--disp_iter", "1",
+        "--val_repeat", "1", "--num_vis", "0", "--workers", "0",
+        "--frame_decode", "pil"]
+    short = base + ["--num_iters", str(CLI_DIST_ITERS + 1)]
+    long = base + ["--num_iters", str(CLI_LAUNCH_ITERS + 1)]
+    ckpt = {k: os.path.join(LAUNCH_DIR, k, "ckpt")
+            for k in ("clamp", "one", "gloo", "nccl")}
+    cfg = parse_args(short)
+    with open(os.path.join(REPO_DIR, manifest)) as f:
+        n = cfg.val_repeat * sum(1 for line in f if line.count(",") >= 1)
+    eval_steps = 2 * -(-n // cfg.batch_size)
+    hist = {}
+
+    def history_of(name):
+        run = os.path.join(ckpt[name], cfg.id)
+        with open(os.path.join(run, "history_latest.json")) as f:
+            hist[name] = json.load(f)
+        for branch in ("av", "ao"):
+            check_results(read_results(run, branch), hist[name],
+                          "val_" + branch, n)
+        return hist[name]
+
+    # (a), the one-process reference and the failing launch at once (the
+    # failing launch's ranks only sleep or raise)
+    for k in ckpt:
+        shutil.rmtree(os.path.dirname(ckpt[k]), ignore_errors=True)
+    fail_dir, proc = launch_child("fail", 2, "gloo", "fail",
+                                  ["--num_gpus", "2"], one_card=True)
+    t0 = time.perf_counter()
+    failed = {}
+
+    def drain():                    # its output, and when it exited
+        failed["out"] = proc.communicate()
+        failed["t"] = time.perf_counter()
+    waiter = threading.Thread(target=drain, daemon=True)
+    waiter.start()
+    ref = spawn("cli", 1, *long, "--ckpt", ckpt["one"])
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES=os.environ.get(
+        "CUDA_VISIBLE_DEVICES", "0").split(",")[0])
+    wall, out, clamp_launches, tf32 = run_module(
+        "cli_launch (a)", "avsep_tpu_torch.main",
+        short + ["--ckpt", ckpt["clamp"]], env=env)
+    single, = reports("cli_launch reference", ref)
+    line = launch_line(out)
+    want = ("[launch] width 1 (main: min(--num_gpus 2, 1 local cards); "
+            "fewer cards than --num_gpus 2, so its global batch of 4 rows "
+            "runs on 1 card): rank 0 on cuda in this process, no group")
+    if line != want:
+        raise AssertionError(f"cli_launch (a): {line!r}")
+    expect_launches("cli_launch (a)", clamp_launches,
+                    2 * CLI_DIST_ITERS + 3 * eval_steps, eval_steps)
+    one = history_of("one")
+    loss_a, meters_a = _history_err(history_of("clamp"), one, CLI_DIST_ITERS)
+    emit("cli_launch_clamp", argv=short, launch_line=line, wall_s=wall,
+         launches=clamp_launches, tf32=tf32, loss_rel_err=loss_a,
+         meters_err=meters_a, tolerance=CLI_DIST_TOL,
+         losses=hist["clamp"]["train"]["err"],
+         single_losses=one["train"]["err"][:CLI_DIST_ITERS])
+    if not (loss_a <= CLI_DIST_TOL["loss_rel_err"]
+            and meters_a <= CLI_DIST_TOL["meters_err"]):
+        raise AssertionError(f"cli_launch (a): loss {loss_a}, meters "
+                             f"{meters_a}")
+    launches = {"cli_launch_clamp": clamp_launches}
+    calls = {"cli_launch_clamp": CLI_DIST_ITERS + eval_steps}
+
+    waiter.join(max(0.0, LAUNCH_FAIL_DEADLINE_S - (time.perf_counter() - t0)))
+    if waiter.is_alive():
+        proc.kill()
+        waiter.join()
+        raise AssertionError(f"cli_launch fail: the launch outlived "
+                             f"{LAUNCH_FAIL_DEADLINE_S} s:\n"
+                             f"{failed['out'][1][-3000:]}")
+    err = failed["out"][1]
+    pids = []
+    for r in (0, 1):
+        with open(os.path.join(fail_dir, f"rank{r}.pid")) as f:
+            pids.append(int(f.read()))
+    left = [p for p in pids if not _gone(p)]
+    emit("cli_launch_fail", exit_code=proc.returncode,
+         wall_s=failed["t"] - t0, deadline_s=LAUNCH_FAIL_DEADLINE_S,
+         rank_pids=pids, left=left,
+         stderr_tail=err.strip().splitlines()[-1:])
+    if proc.returncode == 0 or left or "rank 1 fails on purpose" not in err:
+        raise AssertionError(f"cli_launch fail: exit {proc.returncode}, "
+                             f"left {left}:\n{err[-3000:]}")
+
+    def ranks_phase(name, n_local, backend, one_card):
+        load = os.getloadavg()[0]
+        cpu0 = time.process_time()
+        out_dir, proc = launch_child("run", n_local, backend, name,
+                                     long + ["--ckpt", ckpt[name]], one_card)
+        t0 = time.perf_counter()
+        line, ranks = _ranks_of(f"cli_launch {name}", out_dir, proc, 2)
+        wall = time.perf_counter() - t0
+        want_backend = "gloo" if backend == "gloo" else "nccl"
+        _check_ranks(f"cli_launch {name}", ranks, want_backend,
+                     CLI_LAUNCH_ITERS, eval_steps)
+        loss, meters = _history_err(history_of(name), one, CLI_DIST_ITERS)
+        if not (loss <= CLI_DIST_TOL["loss_rel_err"]
+                and meters <= CLI_DIST_TOL["meters_err"]):
+            raise AssertionError(f"cli_launch {name}: loss {loss}, meters "
+                                 f"{meters}")
+        for r in ranks:
+            launches[f"cli_launch_{name}_rank{r['rank']}"] = r["launches"]
+            calls[f"cli_launch_{name}_rank{r['rank']}"] = \
+                CLI_LAUNCH_ITERS + eval_steps
+        # the host's load before the launch, and the CPU seconds this
+        # (waiting) process took during it: host contention shows in both
+        return dict(launch_line=line, wall_s=wall, host_load_1m=load,
+                    parent_cpu_s=time.process_time() - cpu0,
+                    cards=[[r["card"], r["card_name"]] for r in ranks],
+                    step_ms_by_rank=_step_ms(ranks),
+                    peak_mem_gib_by_rank=[r["peak_mem_gib"] for r in ranks],
+                    decoded_by_rank=[r["decoded"] for r in ranks],
+                    decode_s_by_rank=[r["decode_s"] for r in ranks],
+                    single_decoded=single["decoded"],
+                    single_decode_s=single["decode_s"],
+                    launches_by_rank=[r["launches"] for r in ranks],
+                    rank1_writes=ranks[1]["writes"],
+                    rank0_writes=len(ranks[0]["writes"]),
+                    loss_rel_err=loss, meters_err=meters,
+                    losses=hist[name]["train"]["err"],
+                    single_losses=one["train"]["err"],
+                    tolerance=CLI_DIST_TOL)
+
+    # (b): two gloo ranks sharing the first card
+    check_compute_mode()
+    res = ranks_phase("gloo", 2, "gloo", one_card=True)
+    emit("cli_launch_gloo", argv=long, batch_global=cfg.batch_size,
+         iterations=CLI_LAUNCH_ITERS, compared_iterations=CLI_DIST_ITERS,
+         backend="gloo through the host, two ranks sharing one card", **res)
+
+    # (c): two NCCL ranks on two cards
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit("cli_launch_nccl", ran=False, reason=f"{cards} card visible: "
+             "two NCCL ranks on distinct cards need two or more")
+    else:
+        res = ranks_phase("nccl", 0, "none", one_card=False)
+        emit("cli_launch_nccl", ran=True, argv=long, cards_visible=cards,
+             batch_global=cfg.batch_size, iterations=CLI_LAUNCH_ITERS,
+             compared_iterations=CLI_DIST_ITERS,
+             backend="nccl, one rank per card", **res)
+    return launches, calls
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2877,6 +3277,10 @@ def main() -> int:
         (launches["dist_eval"], calls["dist_eval"]) = run_dist_train()
     launches["dist_nccl"], calls["dist_nccl"] = run_dist_nccl()
     launches["cli_dist"], calls["cli_dist"] = cli_dist()
+    # slice 9: the launcher, one path per rank
+    more, more_calls = cli_launch()
+    launches.update(more)
+    calls.update(more_calls)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2902,6 +3306,26 @@ def main() -> int:
     return 0
 
 
+def only(argv) -> int:
+    """``python3 chip_smoke.py --only cli_launch``: the card line, the
+    kernels' build and the cli_launch phase alone, for a machine with two
+    or more cards (its part (c)); then the launches by path."""
+    if argv != ["cli_launch"] or not torch.cuda.is_available():
+        print("chip_smoke --only: cli_launch, on a GPU", file=sys.stderr)
+        return 2
+    engine.full_float32()
+    emit("card", nvidia_smi=nvidia_smi_line(),
+         devices=[torch.cuda.get_device_name(i)
+                  for i in range(torch.cuda.device_count())],
+         torch=torch.__version__, cuda=torch.version.cuda)
+    kernels.build()
+    launches, calls = cli_launch()
+    print(json.dumps({"launches_by_path": launches, "calls_by_path": calls}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(child(sys.argv[2:]) if sys.argv[1:2] == ["--dist-child"]
-             else main())
+    sys.exit({"--dist-child": child, "--launch-child": child_launch,
+              "--only": only}.get(
+        sys.argv[1] if len(sys.argv) > 1 else "", lambda _: main())(
+            sys.argv[2:]))

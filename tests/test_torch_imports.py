@@ -46,7 +46,8 @@ def test_port_and_chip_smoke_import_without_jax():
                  "inference", "sop_engine", "sop_main", "models.sop",
                  "models.synthesizer", "models.torch_export",
                  "models.motion", "data.native", "parallel",
-                 "parallel.mesh", "parallel.distributed", "data.scripts",
+                 "parallel.mesh", "parallel.distributed", "parallel.launch",
+                 "data.scripts",
                  "data.scripts.post_process_csv", "data.scripts.extract_wav",
                  "data.scripts.extract_optflow",
                  "data.scripts.make_optical_video"):

@@ -336,7 +336,8 @@ def test_build_loaders_shard_split():
     loader stays the whole, replicated."""
     parts = []
     for r in (0, 1):
-        av, ao, val = build_loaders(shard_cfg(), rank=r, world=2)
+        av, ao, val = build_loaders(shard_cfg(), process_index=r,
+                                     process_count=2)
         try:
             assert av.batch_size == ao.batch_size == 2
             assert val.batch_size == 4 and len(val.dataset) == 6
@@ -354,4 +355,4 @@ def test_build_loaders_shard_too_small_raises():
     per-process batch of four: the JAX package's error."""
     with pytest.raises(ValueError, match="fewer than the per-process batch"):
         build_loaders(shard_cfg(train_repeat=1, batch_size_per_gpu=8),
-                      rank=1, world=2)
+                      process_index=1, process_count=2)

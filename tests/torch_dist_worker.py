@@ -8,10 +8,13 @@ runs ``MODULE.main(parse_args(ARGV), device="cpu")`` (``avsep_tpu_torch.
 main`` or ``sop_main``), which joins the group through the real
 ``--dist_*`` flags, and prints as its last line a JSON object with the
 files it opened for writing under CKPT_ROOT and the global indices its
-``ShardDataset``s served.  A process imports torch and the port only,
-never JAX, and runs one thread, so a pair of ranks stays light beside the
-suite's other workers.  :func:`launch` and :func:`wait_all` are the test
-side: every wait has a deadline, and a failure kills every child.
+``ShardDataset``s served.  ``python -m tests.torch_dist_worker launch KIND
+N_LOCAL OUT WEIGHTS ARGV...`` runs ``parallel.launch.run`` of an entry
+below (:func:`run_launch`), whose ranks report to files under OUT.  A
+process imports torch and the port only, never JAX, and runs one thread,
+so a pair of ranks stays light beside the suite's other workers.
+:func:`launch` and :func:`wait_all` are the test side: every wait has a
+deadline, and a failure kills every child.
 
 Jobs:
 
@@ -27,8 +30,10 @@ Jobs:
 """
 
 import builtins
+import contextlib
 import copy
 import datetime
+import functools
 import importlib
 import json
 import os
@@ -36,6 +41,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -112,11 +118,13 @@ def run_jobs(spec_path, rank, world, init, out_path):
         pdist.shutdown()
 
 
-def run_cli(module, ckpt_root, *argv):
-    from avsep_tpu_torch.config import parse_args
+@contextlib.contextmanager
+def traced(ckpt_root):
+    """Records the files opened for writing under ``ckpt_root`` and the
+    global indices each ``ShardDataset`` serves (tagged in the order they
+    were built) while the block runs; yields ``(writes, served)``."""
     from avsep_tpu_torch.data import loader
 
-    torch.set_num_threads(1)
     root = os.path.realpath(ckpt_root)
     writes, served = [], {}
     real_open = builtins.open
@@ -153,13 +161,146 @@ def run_cli(module, ckpt_root, *argv):
     loader.ShardDataset.__init__ = init
     loader.ShardDataset.__getitem__ = getitem
     try:
-        importlib.import_module(module).main(parse_args(list(argv)),
-                                             device="cpu")
+        yield writes, served
     finally:
         builtins.open, torch.save = real_open, real_save
-    print(json.dumps({"writes": sorted(set(writes)),
-                      "served": {str(k): sorted(v)
-                                 for k, v in served.items()}}), flush=True)
+        loader.ShardDataset.__init__ = real_init
+        loader.ShardDataset.__getitem__ = real_getitem
+
+
+def _report(writes, served, **extra):
+    return {"writes": sorted(set(writes)),
+            "served": {str(k): sorted(v) for k, v in served.items()},
+            **extra}
+
+
+def run_cli(module, ckpt_root, *argv):
+    from avsep_tpu_torch.config import parse_args
+
+    torch.set_num_threads(1)
+    with traced(ckpt_root) as (writes, served):
+        importlib.import_module(module).main(parse_args(list(argv)),
+                                             device="cpu")
+    print(json.dumps(_report(writes, served)), flush=True)
+
+
+# ------------------------------------------- entries for parallel.launch
+
+
+def _rank_file(out_dir):
+    return os.path.join(out_dir, f"rank{pdist.rank()}.json")
+
+
+def traced_entry(module, out_dir, weights, cfg, device):
+    """One rank of ``launch.run``: ``MODULE.main(cfg, device)``, traced as
+    ``run_cli`` traces it, from the JAX package's initial weights when
+    ``weights`` names a ``torch.save``d ``(params, batch_stats)`` pair of
+    numpy trees; the report goes to OUT_DIR/rank{r}.json."""
+    torch.set_num_threads(1)
+    if weights != "-":
+        from avsep_tpu_torch.models.from_jax import load_from_jax
+        params, stats = torch.load(weights, weights_only=False)
+        init_state = train.init_state
+
+        def from_jax(*a, **kw):
+            state = init_state(*a, **kw)
+            load_from_jax(state.nets, params, stats)
+            return state
+        train.init_state = from_jax
+    with traced(cfg.ckpt) as (writes, served):
+        importlib.import_module(module).main(cfg, device)
+    with open(_rank_file(out_dir), "w") as f:
+        json.dump(_report(writes, served, rank=pdist.rank(),
+                          world=pdist.world_size(),
+                          process=pdist.process_index(cfg),
+                          pid=os.getpid(),
+                          tf32=[torch.backends.cudnn.allow_tf32,
+                                torch.backends.cuda.matmul.allow_tf32]), f)
+
+
+class IndexClips:
+    """A dataset of ``n`` items whose ``audios`` hold their index, in
+    place of ``MusicMixDataset(path, cfg, split, seed)``: the rows a batch
+    carries, with no audio read and no model."""
+    frame_route = "none"
+
+    def __init__(self, path, cfg, split="train", seed=None, n=24):
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return {"audios": np.full((2, 4), i, np.float32), "id": f"c{i}"}
+
+
+def rows_entry(out_dir, n_batches, cfg, device):
+    """One rank of ``launch.run``: the row indices its first ``n_batches``
+    AV train batches give it, through ``main.build_loaders`` and
+    ``engine.to_device`` over :class:`IndexClips`; to OUT_DIR/rank{r}.json."""
+    from avsep_tpu_torch import engine
+    from avsep_tpu_torch import main as cli_main
+
+    cli_main.MusicMixDataset = IndexClips
+    pdist.validate_global_batch(cfg)
+    av, ao, val = cli_main.build_loaders(
+        cfg, process_index=pdist.process_index(cfg),
+        process_count=pdist.process_count(cfg))
+    rows = []
+    try:
+        it = iter(av)
+        for _ in range(int(n_batches)):
+            b = engine.to_device(next(it), torch.device("cpu"), cfg=cfg)
+            rows.append(b["audios"][:, 0, 0].long().tolist())
+    finally:
+        for ld in (av, ao, val):
+            ld.close()
+    with open(_rank_file(out_dir), "w") as f:
+        json.dump({"rank": pdist.rank(), "process": pdist.process_index(cfg),
+                   "rows": rows}, f)
+
+
+def pid_entry(out_dir, failing_rank, cfg, device):
+    """One rank of ``launch.run`` that writes its pid to OUT_DIR/rank{r}.pid
+    and waits for the others to have written theirs, then raises if it is
+    ``failing_rank`` and otherwise sleeps for five minutes: only the
+    launcher can end it sooner."""
+    path = os.path.join(out_dir, f"rank{pdist.rank()}.pid")
+    with open(path + ".tmp", "w") as f:
+        f.write(str(os.getpid()))
+    os.replace(path + ".tmp", path)
+    pdist.barrier()
+    if pdist.rank() == int(failing_rank):
+        raise RuntimeError(f"rank {failing_rank} fails on purpose")
+    time.sleep(300)
+
+
+def run_launch(kind, n_local, out_dir, weights, *argv):
+    """``launch.run`` of the entry KIND (``main`` or ``sop_main``:
+    :func:`traced_entry`; ``rows``: :func:`rows_entry` over 3 batches;
+    ``raise``: :func:`pid_entry` with rank 1 failing; ``sleep``: with none)
+    on ``parse_args(ARGV)``, on the CPU, as if the process had N_LOCAL
+    cards, with TF32 off first as the command lines' ``__main__`` blocks
+    turn it off."""
+    from avsep_tpu_torch.config import parse_args
+    from avsep_tpu_torch.engine import full_float32
+    from avsep_tpu_torch.parallel import launch
+
+    torch.set_num_threads(1)
+    full_float32()
+    if kind in ("main", "sop_main"):
+        module = importlib.import_module(f"avsep_tpu_torch.{kind}")
+        # the wrapper names the entry it wraps: launch reads the width rule
+        # from the entry's module
+        entry = functools.update_wrapper(functools.partial(
+            traced_entry, module.__name__, out_dir, weights), module.main)
+    elif kind == "rows":
+        entry = functools.partial(rows_entry, out_dir, 3)
+    else:
+        entry = functools.partial(pid_entry, out_dir,
+                                  1 if kind == "raise" else -1)
+    launch.run(entry, parse_args(list(argv)), device="cpu",
+               n_local=int(n_local))
 
 
 # ------------------------------------------------------------ test side
@@ -206,4 +347,5 @@ def wait_all(procs, timeout):
 
 
 if __name__ == "__main__":
-    {"jobs": run_jobs, "cli": run_cli}[sys.argv[1]](*sys.argv[2:])
+    {"jobs": run_jobs, "cli": run_cli,
+     "launch": run_launch}[sys.argv[1]](*sys.argv[2:])
