@@ -3,8 +3,8 @@
 The same flag names and defaults as the reference's ``arguments.py``
 (reference ``arguments.py:6-169``), as a frozen dataclass.  This is the
 port's own copy of ``avsep_tpu/config.py``: the port imports nothing of the
-JAX package.  It leaves out the Pallas switch: on a CUDA tensor the port
-always runs its kernels, on a CPU tensor their plain versions.  The data
+JAX package.  It has no Pallas switch: on a CUDA tensor the port always
+runs its kernels, on a CPU tensor their plain versions.  The data
 mesh and the multi-process fields (``mesh_shape``, ``data_axis``,
 ``dist_*``) drive ``parallel/``, one process per card.  ``dtype`` is the
 nets' compute dtype, ``float32`` or ``bfloat16``
@@ -12,10 +12,9 @@ nets' compute dtype, ``float32`` or ``bfloat16``
 float32).
 
 :func:`parse_args` accepts every flag string of the JAX package, so the
-repository's ``scripts/*.sh`` option strings parse unchanged.  A flag of a
-feature the port lacks (``UNPORTED_FLAGS``) raises at a value other than its
-default, naming the ``ROADMAP.md`` item it waits for: nothing is silently
-ignored.
+repository's ``scripts/*.sh`` option strings parse unchanged.  The one flag
+with no field, ``--use_pallas``, is accepted at either value and changes
+nothing (:data:`USE_PALLAS_HELP` says why).
 """
 
 from __future__ import annotations
@@ -195,15 +194,11 @@ FLAGSHIP = Config(arch_sound="unet7", num_channels=2, vis_channels=256,
 
 DTYPES = ("float32", "bfloat16")
 
-# ROADMAP.md, where each feature the port lacks waits
-KERNEL_SWITCH_ITEM = ("ROADMAP.md, 'Flags that raise' (the port runs its "
-                      "kernels on every CUDA tensor; nothing switches them)")
-
-# flags of the JAX package that the port's Config has no field for: their
-# default (the only value the port accepts) and the ROADMAP.md item
-UNPORTED_FLAGS = {
-    "use_pallas": (False, KERNEL_SWITCH_ITEM),
-}
+USE_PALLAS_HELP = (
+    "accepted for the JAX package's command lines and ignored: there it "
+    "switches the STFT framing and the iSTFT tail to its Pallas kernels; "
+    "the port launches its CUDA kernels on every CUDA tensor and takes "
+    "their plain versions on the CPU, and the two agree bit for bit")
 FRAME_DECODES = ("auto", "pil", "native", "fast")
 
 
@@ -221,20 +216,22 @@ _STORE_TRUE = ("load_clips", "one_frame", "fix_vis", "start_av_first",
 _STORE_FALSE = ("not_pool_vis", "use_spec")
 
 
-def _add_flag(p: argparse.ArgumentParser, name: str, default) -> None:
+def _add_flag(p: argparse.ArgumentParser, name: str, default,
+              help: Optional[str] = None) -> None:
     flag = "--" + name
     if name in _STORE_FALSE:
-        p.add_argument(flag, action="store_false", default=True)
+        p.add_argument(flag, action="store_false", default=True, help=help)
     elif name in _STORE_TRUE:
-        p.add_argument(flag, action="store_true", default=False)
+        p.add_argument(flag, action="store_true", default=False, help=help)
     elif isinstance(default, tuple):
         elem = int if all(isinstance(x, int) for x in default) else str
-        p.add_argument(flag, nargs="+", type=elem, default=list(default))
+        p.add_argument(flag, nargs="+", type=elem, default=list(default),
+                       help=help)
     elif isinstance(default, bool):
         p.add_argument(flag, type=lambda s: s.lower() in ("1", "true", "yes"),
-                       default=default)
+                       default=default, help=help)
     else:
-        p.add_argument(flag, type=type(default), default=default)
+        p.add_argument(flag, type=type(default), default=default, help=help)
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -244,24 +241,15 @@ def _build_parser() -> argparse.ArgumentParser:
     d = Config()
     for f in dataclasses.fields(Config):
         _add_flag(p, f.name, getattr(d, f.name))
-    for name, (default, _) in UNPORTED_FLAGS.items():
-        _add_flag(p, name, default)
+    _add_flag(p, "use_pallas", False, help=USE_PALLAS_HELP)
     return p
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> Config:
-    """Parse reference-compatible CLI flags into a Config.  Raises
-    ``NotImplementedError`` for a flag of a feature the port lacks, set to
-    anything but its default."""
+    """Parse reference-compatible CLI flags into a Config (``--use_pallas``
+    is parsed and dropped)."""
     kw = vars(_build_parser().parse_args(argv))
-    for name, (default, item) in UNPORTED_FLAGS.items():
-        value = kw.pop(name)
-        if isinstance(default, tuple):
-            value = tuple(value)
-        if value != default:
-            raise NotImplementedError(
-                f"--{name} {value!r} is not ported (only {default!r}); see "
-                f"{item}")
+    kw.pop("use_pallas")
     check_frame_decode(kw["frame_decode"])
     if kw["dtype"] not in DTYPES:
         raise ValueError(f"--dtype {kw['dtype']!r}: one of {DTYPES}")

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Sequence
 
@@ -224,8 +225,17 @@ class ProcessBatchLoader(BatchLoader):
             self._cur_epoch.value = self._epoch + 1
             for _ in self._procs:
                 self._task_q.put(None)
+            # a worker exits only once its queue's feeder has flushed the
+            # batches it put into the pipe: drain them while it winds down
+            deadline = time.monotonic() + 5
             for p in self._procs:
-                p.join(timeout=5)
+                while p.is_alive() and time.monotonic() < deadline:
+                    try:
+                        while True:
+                            self._result_q.get_nowait()
+                    except queue.Empty:
+                        pass
+                    p.join(timeout=0.05)
                 if p.is_alive():
                     p.terminate()
                     p.join(timeout=5)

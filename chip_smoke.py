@@ -201,6 +201,21 @@ script exits non-zero before printing any result.
    ranks on two cards, as cli_launch_gloo; with one card, a line saying it
    did not run and why.  ``python3 chip_smoke.py --only cli_launch`` runs
    this phase alone (for a machine with several cards).
+20. proof_tools (avsep_tpu_torch/tools/): on a toy class-token set built
+   by ``tools.make_synthetic_data`` (4 classes x 3 videos), ``main.main``
+   trains the toy AV recipe of scripts/train_toy_av_proof_torch.sh at full
+   width (unet7, resnet18dilated-256, hidsep/sig, B = 16, float32) for a
+   few iterations and one eval; ``tools.av_probe`` probes its best
+   checkpoint (every key of the JAX report, ``pointing_n == 2 * perm_n``,
+   finite SI-SDRs, the kernels' launches); ``tools.export_reference_ckpt``
+   writes its ``.pth`` files, read back into fresh nets bit for bit;
+   ``sop_main`` trains scripts/train_SoPpp.sh's width for 3 iterations and
+   ``tools.sop_probe`` probes it (the same checks, and the export with
+   ``--sop``); ``tools.schedule_proof`` runs its 201 iterations and must
+   hold every invariant; ``python -m avsep_tpu_torch.tools.bench_loader``
+   prints the host loader's clips/s at B = 16 beside the train phase's AV
+   and AO samples/s.  ``python3 chip_smoke.py --only proof_tools`` runs
+   this phase alone.
 Then the kernel table as one JSON line (launches summed over the main
 paths' runs, by path and per call), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -763,7 +778,8 @@ def check_no_silent_detach(dev):
 def run_train(dev, gen, dtype="float32"):
     """The recipe of scripts/train_MUSIC.sh on one card in ``dtype`` (phase
     ``train`` in float32, ``train_bf16``): 2 warm-up steps, then
-    TRAIN_STEPS timed steps, AV and AO by batch_scheduler."""
+    TRAIN_STEPS timed steps, AV and AO by batch_scheduler.  Returns the
+    launches and the samples/s of an AV and of an AO step (medians)."""
     phase = "train" if dtype == "float32" else "train_bf16"
     if dtype == "float32":
         check_no_silent_detach(dev)
@@ -849,7 +865,8 @@ def run_train(dev, gen, dtype="float32"):
     av_step = steps[True]
     profile_calls(f"{phase}_profile", lambda i: av_step(
         state, batches[i], generator=swap), 1, step="AV")
-    return launches
+    return launches, {"av": 1e3 * B / float(np.median(times[True])),
+                      "ao": 1e3 * B / float(np.median(times[False]))}
 
 
 @torch.no_grad()
@@ -3204,6 +3221,258 @@ def cli_launch():
     return launches, calls
 
 
+# ------------------------------------------------------------- slice 10
+
+PROOF_DIR = os.path.join(OUT_DIR, "proof")
+# the toy set of scripts/train_toy_av_proof_torch.sh cut to 3 videos per
+# class (the recipe's loader mixes two classes per sample and holds one
+# video of each class out: 8 train rows, 4 val rows); video 2 is held out
+PROOF_SET = ["--classes", "cello", "flute", "violin", "trumpet",
+             "--videos_per_class", "3", "--duration", "14", "--fps", "8",
+             "--class_tokens"]
+PROOF_VAL_VIDEO = "2"
+# main.main on the toy AV recipe: iterations 1 .. PROOF_ITERS, an eval and
+# the best / latest checkpoints at PROOF_ITERS; sop_main the same at
+# train_SoPpp.sh's width
+PROOF_ITERS = 4
+SOP_PROOF_ITERS = 3
+# the keys of the JAX tools' reports (tools/av_probe.py, tools/sop_probe.py)
+AV_PROBE_KEYS = {"perm_acc", "perm_n", "pointing_acc", "pointing_mass_acc",
+                 "pointing_n", "av_si_sdr", "av_sdr", "ao_si_sdr", "ao_sdr",
+                 "mass_confusion", "mean_mass_on_token",
+                 "mass_on_token_uniform"}
+SOP_PROBE_KEYS = {"assign_acc", "assign_acc_sisdr", "assign_n", "av_si_sdr",
+                  "av_sdr", "ao_si_sdr", "ao_sdr", "ckpt_tag"}
+
+
+def proof_set():
+    """The toy set (``tools.make_synthetic_data``), its train and val
+    splits; returns (root, train.csv, train split, val split, seconds)."""
+    from avsep_tpu_torch.tools import make_synthetic_data
+    root = os.path.join(PROOF_DIR, "toy_tok")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    make_synthetic_data.main(["--root", root, *PROOF_SET])
+    with open(os.path.join(root, "train.csv")) as f:
+        rows = [r.strip() for r in f if r.strip()]
+    held = [r.split(",")[0].endswith(PROOF_VAL_VIDEO + ".wav") for r in rows]
+    splits = []
+    for name, keep in (("train_split.csv", False), ("val_split.csv", True)):
+        splits.append(os.path.join(root, name))
+        with open(splits[-1], "w") as f:
+            f.write("\n".join(r for r, h in zip(rows, held) if h == keep)
+                    + "\n")
+    return (root, os.path.join(root, "train.csv"), *splits,
+            time.perf_counter() - t0)
+
+
+def n_rows(manifest):
+    with open(manifest) as f:
+        return sum(1 for line in f if line.count(",") >= 1)
+
+
+def counted(fn, *args, **kw):
+    """``fn(*args, **kw)`` with the launch counters set to 0 just before;
+    returns (its result, the launches, wall seconds)."""
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    return out, read_launches(), time.perf_counter() - t0
+
+
+def check_export(cfg, run, out_dir, sop):
+    """``tools.export_reference_ckpt`` (on the CPU) on ``run``'s best
+    checkpoint; its ``.pth`` files through ``models/torch_import`` into
+    fresh nets, each tensor against the checkpoint's, bit for bit."""
+    from avsep_tpu_torch import sop_main
+    from avsep_tpu_torch.models import torch_import
+    from avsep_tpu_torch.tools import export_reference_ckpt
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = (["--tag", "best", "--out", out_dir] + (["--sop"] if sop else [])
+            + cfg)
+    wrote = export_reference_ckpt.export(argv)
+    pcfg = parse_args(cfg)
+    saved = torch.load(os.path.join(run, "state_best.pt"),
+                       map_location="cpu", weights_only=True)
+    nets = (sop_main.build_sop_nets(pcfg, device="cpu") if sop
+            else engine.build_nets(pcfg, device="cpu"))
+    load = {"sound": lambda sd: torch_import.unet_state_dict_from_torch(
+                sd, num_downs=int(pcfg.arch_sound[-1])),
+            "frame": torch_import.resnet_state_dict_from_torch,
+            "synthesizer": torch_import.synthesizer_state_dict_from_torch}
+    tensors = 0
+    for path in wrote:
+        name = os.path.basename(path).split("_")[0]
+        net = getattr(nets, name)
+        net.load_state_dict(load[name](torch_import.load_torch_checkpoint(
+            path)), strict=True)
+        got, want = net.state_dict(), saved[name]
+        if set(got) != set(want) or not all(
+                torch.equal(got[k], want[k].cpu()) for k in want):
+            raise AssertionError(f"proof_tools: {path} does not give back "
+                                 f"the checkpoint's {name} net bit for bit")
+        tensors += len(want)
+    return {"files": [os.path.basename(p) for p in wrote],
+            "tensors_bit_for_bit": tensors}
+
+
+def proof_tools(dev, train_rates=None):
+    """proof_tools: the proof and checkpoint tools of
+    ``avsep_tpu_torch/tools/`` on the card, on the toy set
+    (``tools.make_synthetic_data``, PROOF_SET):
+
+    1. ``main.main``: the toy AV recipe (scripts/train_toy_av_proof_torch.sh
+       at full width: unet7, resnet18dilated-256, hidsep/sig, B = 16,
+       float32, TF32 off) for PROOF_ITERS iterations and one eval, which
+       writes ``best`` and ``latest``;
+    2. ``tools.av_probe.run_probe`` on ``best``: every key of the JAX
+       report, ``pointing_n == 2 * perm_n``, finite SI-SDRs; 2 + 3 + 3
+       frame_window and 2 overlap_add_normalize launches per val batch;
+    3. ``tools.export_reference_ckpt`` on ``best`` (on the CPU), its files
+       read back through ``models/torch_import``, bit for bit;
+    4. ``sop_main.main`` at scripts/train_SoPpp.sh's width for
+       SOP_PROOF_ITERS iterations and one eval, then
+       ``tools.sop_probe.run_probe --probe_ckpt latest --val_repeat 8``
+       (scripts/train_toy_sop_proof_torch.sh's probe) with the same checks
+       and the export with ``--sop``;
+    5. ``tools.schedule_proof.run_schedule_proof`` at its full compressed
+       shape (201 iterations of unet5 / tinyconv, B = 8): every invariant;
+    6. ``python -m avsep_tpu_torch.tools.bench_loader`` at B = 16 (the
+       process loader, 8 workers, one frame per source at 224 px): its
+       clips/s beside the train phase's AV and AO samples/s.
+
+    Cuts: the set (3 videos per class, not 6), the iterations, ``--workers
+    0`` (thread loaders: the process loader's workers would import this
+    script, and torch with it) and ``--num_vis 0``.  Returns the launches
+    and the calls (train, probe and eval steps) by path."""
+    from avsep_tpu_torch import main as train_main
+    from avsep_tpu_torch import sop_main
+    from avsep_tpu_torch.tools import av_probe, schedule_proof, sop_probe
+    t_phase = time.perf_counter()
+    root, all_rows, train_csv, val_csv, set_s = proof_set()
+    lists = ["--av_list_train", train_csv, "--ao_list_train", train_csv,
+             "--list_val", val_csv]
+    launches, calls, out = {}, {}, {"set": {
+        "root": os.path.relpath(root, REPO_DIR), "rows": n_rows(all_rows),
+        "train_rows": n_rows(train_csv), "val_rows": n_rows(val_csv),
+        "seconds": set_s}}
+
+    # 1-3. the toy AV recipe, its probe and its export
+    av = script_flags("train_toy_av_proof_torch.sh") + lists + [
+        "--id", "avproof", "--ckpt", os.path.join(PROOF_DIR, "ckpt"),
+        "--workers", "0", "--num_iters", str(PROOF_ITERS + 1),
+        "--eval_iter", str(PROOF_ITERS), "--disp_iter", "1"]
+    cfg = parse_args(["--mode", "train"] + av)
+    run = os.path.join(cfg.ckpt, cfg.id)
+    shutil.rmtree(run, ignore_errors=True)
+    _, got, wall = counted(train_main.main, cfg)
+    val_steps = -(-cfg.val_repeat * n_rows(val_csv) // cfg.batch_size)
+    expect_launches("proof_tools main", got,
+                    2 * PROOF_ITERS + 3 * 2 * val_steps, 2 * val_steps)
+    if not all(os.path.exists(os.path.join(run, f"state_{t}.pt"))
+               for t in ("best", "latest")):
+        raise AssertionError("proof_tools: main.main wrote no best / latest")
+    launches["proof_main"], calls["proof_main"] = got, \
+        PROOF_ITERS + 2 * val_steps
+    out["main"] = {"wall_s": wall, "iterations": PROOF_ITERS,
+                   "eval_steps": 2 * val_steps, "launches": got}
+
+    pcfg = parse_args(["--mode", "eval"] + av)
+    report, got, wall = counted(av_probe.run_probe, pcfg, os.path.join(
+        root, "tokens.json"), tag="best")
+    if set(report) != AV_PROBE_KEYS or report["pointing_n"] != \
+            2 * report["perm_n"] or report["perm_n"] != \
+            pcfg.val_repeat * n_rows(val_csv) or not np.isfinite(
+                [report[k] for k in ("av_si_sdr", "av_sdr", "ao_si_sdr",
+                                     "ao_sdr")]).all():
+        raise AssertionError(f"proof_tools: av_probe report {report}")
+    expect_launches("proof_tools av_probe", got, 8 * val_steps,
+                    2 * val_steps)
+    launches["av_probe"], calls["av_probe"] = got, 3 * val_steps
+    out["av_probe"] = {"wall_s": wall, "report": report, "launches": got}
+    reset_launches()
+    out["export"] = check_export(av, run, os.path.join(PROOF_DIR, "pth"),
+                                 sop=False)
+    expect_launches("proof_tools export", read_launches(), 0, 0)
+
+    # 4. SoP++ at train_SoPpp.sh's width, its probe and its export
+    sop = opts_flags("train_SoPpp.sh") + lists + [
+        "--num_gpus", "1", "--id", "sopproof", "--ckpt",
+        os.path.join(PROOF_DIR, "ckpt"), "--workers", "0",
+        "--num_iters", str(SOP_PROOF_ITERS + 1), "--eval_iter",
+        str(SOP_PROOF_ITERS), "--disp_iter", "1", "--num_fsteps", "0",
+        "--num_vis", "0"]
+    scfg = parse_args(["--mode", "train"] + sop)
+    shutil.rmtree(os.path.join(scfg.ckpt, scfg.id), ignore_errors=True)
+    _, got, wall = counted(sop_main.main, scfg)
+    sop_val = -(-scfg.val_repeat * n_rows(val_csv) // scfg.batch_size)
+    expect_launches("proof_tools sop_main", got,
+                    2 * SOP_PROOF_ITERS + 3 * 2 * sop_val, 2 * sop_val)
+    launches["proof_sop_main"], calls["proof_sop_main"] = got, \
+        SOP_PROOF_ITERS + 2 * sop_val
+    out["sop_main"] = {"wall_s": wall, "batch": scfg.batch_size,
+                       "iterations": SOP_PROOF_ITERS, "launches": got}
+    probe_cfg = parse_args(["--mode", "eval"] + sop + ["--val_repeat", "8"])
+    report, got, wall = counted(sop_probe.run_probe, probe_cfg, tag="latest")
+    n = 8 * n_rows(val_csv)
+    probe_steps = 3 * -(-n // probe_cfg.batch_size)
+    if set(report) != SOP_PROBE_KEYS or report["assign_n"] != n or \
+            not np.isfinite([report[k] for k in (
+                "av_si_sdr", "av_sdr", "ao_si_sdr", "ao_sdr")]).all():
+        raise AssertionError(f"proof_tools: sop_probe report {report}")
+    expect_launches("proof_tools sop_probe", got, 3 * probe_steps,
+                    probe_steps)
+    launches["sop_probe"], calls["sop_probe"] = got, probe_steps
+    out["sop_probe"] = {"wall_s": wall, "report": report, "launches": got}
+    out["export_sop"] = check_export(
+        sop, os.path.join(scfg.ckpt, scfg.id),
+        os.path.join(PROOF_DIR, "pth_sop"), sop=True)
+
+    # 5. the schedule proof at its full compressed shape
+    sched_ckpt = os.path.join(PROOF_DIR, "sched")
+    report, got, wall = counted(schedule_proof.run_schedule_proof,
+                                all_rows, sched_ckpt)
+    if not report["ok"]:
+        raise AssertionError(f"proof_tools: schedule_proof failed "
+                             f"{report['failures']}")
+    scfg8 = parse_args(schedule_proof.cli_args(all_rows, sched_ckpt, 201,
+                                               True))
+    train_steps = (125 - 1) + (201 - 1 - 120)
+    eval_steps = 2 * len(report["eval_iters"]) * -(
+        -scfg8.val_repeat * n_rows(all_rows) // scfg8.batch_size)
+    expect_launches("proof_tools schedule_proof", got,
+                    2 * train_steps + 3 * eval_steps, eval_steps)
+    launches["schedule_proof"], calls["schedule_proof"] = got, \
+        train_steps + eval_steps
+    out["schedule_proof"] = {"wall_s": wall, "train_steps": train_steps,
+                             "eval_steps": eval_steps, "report": report,
+                             "launches": got}
+
+    # 6. the host loader against the train step
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "avsep_tpu_torch.tools.bench_loader", "--csv",
+         train_csv, "--bs", str(B), "--one_frame"], cwd=REPO_DIR,
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"proof_tools: bench_loader exited "
+                             f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    clips = float(re.search(r"= ([0-9.]+) clips/s", line).group(1))
+    loader = {"line": line, "clips_per_s": clips, "wall_s":
+              time.perf_counter() - t0, "host_cpus": os.cpu_count()}
+    if train_rates:
+        loader.update({f"train_{k}_samples_per_s": v
+                       for k, v in train_rates.items()})
+        loader.update({f"loader_over_train_{k}": clips / v
+                       for k, v in train_rates.items()})
+    else:
+        loader["train_samples_per_s"] = "not measured in this run"
+    out["bench_loader"] = loader
+    emit("proof_tools", seconds=time.perf_counter() - t_phase, **out)
+    return launches, calls
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -3241,8 +3510,8 @@ def main() -> int:
     # a bfloat16 phase draws what its float32 partner draws, from a copy of
     # the generator, and the remat phase from a generator of its own: they
     # take no draw from ``gen``, so the phases after them keep their inputs
-    launches["train_bf16"] = run_train(dev, fork(gen), "bfloat16")
-    launches["train"] = run_train(dev, gen)
+    launches["train_bf16"], _ = run_train(dev, fork(gen), "bfloat16")
+    launches["train"], train_rates = run_train(dev, gen)
     launches["remat"] = run_remat(dev, torch.Generator().manual_seed(SEED))
     calls = {"separate": REQUESTS, "separate_bf16": REQUESTS,
              "train": TRAIN_STEPS, "train_bf16": TRAIN_STEPS,
@@ -3281,6 +3550,10 @@ def main() -> int:
     more, more_calls = cli_launch()
     launches.update(more)
     calls.update(more_calls)
+    # slice 10: the proof and checkpoint tools, one path per tool run
+    more, more_calls = proof_tools(dev, train_rates)
+    launches.update(more)
+    calls.update(more_calls)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3309,9 +3582,15 @@ def main() -> int:
 def only(argv) -> int:
     """``python3 chip_smoke.py --only cli_launch``: the card line, the
     kernels' build and the cli_launch phase alone, for a machine with two
-    or more cards (its part (c)); then the launches by path."""
-    if argv != ["cli_launch"] or not torch.cuda.is_available():
-        print("chip_smoke --only: cli_launch, on a GPU", file=sys.stderr)
+    or more cards (its part (c)); ``--only proof_tools`` the same with the
+    proof_tools phase (without the train phase's rates); then the launches
+    by path."""
+    phases = {"cli_launch": cli_launch,
+              "proof_tools": lambda: proof_tools(torch.device(DEVICE))}
+    if len(argv) != 1 or argv[0] not in phases or \
+            not torch.cuda.is_available():
+        print("chip_smoke --only: cli_launch or proof_tools, on a GPU",
+              file=sys.stderr)
         return 2
     engine.full_float32()
     emit("card", nvidia_smi=nvidia_smi_line(),
@@ -3319,7 +3598,7 @@ def only(argv) -> int:
                   for i in range(torch.cuda.device_count())],
          torch=torch.__version__, cuda=torch.version.cuda)
     kernels.build()
-    launches, calls = cli_launch()
+    launches, calls = phases[argv[0]]()
     print(json.dumps({"launches_by_path": launches, "calls_by_path": calls}))
     return 0
 

@@ -1,27 +1,46 @@
 #!/bin/bash
-# The recipe of scripts/train_toy_av_proof.sh through the PyTorch port, on
-# one GPU: unet7 + dilated ResNet18-256 + CoLoc/sig, B = 16, 3000
-# iterations on the class-token synthetic set, with an eval of the held-out
-# split every 750 iterations (python -m avsep_tpu_torch.main --mode train).
+# The audio-visual learning proof of scripts/train_toy_av_proof.sh through
+# the PyTorch port, on one GPU: build the class-token synthetic set (when
+# $ROOT/tokens.json is missing), train the flagship recipe shape (unet7 +
+# dilated ResNet18-256 + CoLoc/sig, B = 16, 3000 iterations, an eval of the
+# held-out split every 750), then probe permutation accuracy, the pointing
+# game and AV-vs-AO SI-SDR on that split (avsep_tpu_torch.tools.av_probe).
 #
-# The set is the one scripts/train_toy_av_proof.sh builds in its first step
-# (examples/make_synthetic_data.py --class_tokens and the train / val
-# split), which needs the JAX package: build it there and pass its
-# directory as ROOT.  tools/av_probe.py (pointing game, permutation
-# accuracy) reads JAX checkpoints, so this script reports the train loop's
-# own eval instead.
+# The deviations of scripts/train_toy_av_proof.sh from train_MUSIC.sh hold
+# here too: no ImageNet bootstrap, so lr_frame 1e-3; 3k iterations.
+# SHARED_BG=1 builds the variant where every video shares one background,
+# so the class token is the only class-informative visual content.
 #
+#   SHARED_BG=1 scripts/train_toy_av_proof_torch.sh build/toy_tok build/ckpt
 #   EXTRA_ARGS="--dtype bfloat16 --dft matmul" ID=bf16 \
-#       scripts/train_toy_av_proof_torch.sh build/toy_tok build/toy_ckpt
+#       scripts/train_toy_av_proof_torch.sh build/toy_tok build/ckpt
 #
-# It ends with one JSON line: the AV and AO SI-SDR and SDR of each eval.
+# It ends with the probe's summary line (PROBE_CKPT=latest probes the final
+# iterate instead of the best-by-AO-SI-SDR checkpoint), then one JSON line:
+# the AV and AO SI-SDR and SDR of each eval of the training run.
 set -e
 
 ROOT=${1:-build/toy_tok}
 CKPT=${2:-./ckpt}
 ID=${ID:-avproof}
-[ -f "$ROOT/train_split.csv" ] || {
-  echo "no $ROOT/train_split.csv: build the set first" >&2; exit 1; }
+SB_FLAG=""
+[ "${SHARED_BG:-0}" = "1" ] && SB_FLAG="--shared_background"
+
+if [ ! -f "$ROOT/tokens.json" ]; then
+  python -m avsep_tpu_torch.tools.make_synthetic_data --root "$ROOT" \
+    --classes cello flute violin trumpet --videos_per_class 6 \
+    --duration 14 --fps 8 --class_tokens $SB_FLAG
+  python - "$ROOT" <<'EOF'
+import sys
+root = sys.argv[1]
+rows = [l.strip() for l in open(f"{root}/train.csv") if l.strip()]
+train = [r for r in rows if not r.split(",")[0].endswith("5.wav")]
+val = [r for r in rows if r.split(",")[0].endswith("5.wav")]
+open(f"{root}/train_split.csv", "w").write("\n".join(train) + "\n")
+open(f"{root}/val_split.csv", "w").write("\n".join(val) + "\n")
+print(len(train), "train rows,", len(val), "held-out val rows")
+EOF
+fi
 
 args=(
   --id "$ID"
@@ -44,6 +63,9 @@ args=(
 [ -n "${EXTRA_ARGS:-}" ] && args+=(${EXTRA_ARGS})
 
 python -u -m avsep_tpu_torch.main --mode train "${args[@]}"
+
+python -u -m avsep_tpu_torch.tools.av_probe --tokens_json "$ROOT/tokens.json" \
+  --probe_ckpt "${PROBE_CKPT:-best}" --mode eval "${args[@]}"
 
 python - "$CKPT/$ID/history_latest.json" <<'EOF'
 import json

@@ -2,8 +2,10 @@
 module of avsep_tpu_torch, and chip_smoke.py, import in a fresh interpreter
 where ``jax``, ``flax`` and ``avsep_tpu`` are blocked in ``sys.modules``.
 The data-side modules added with ``parallel/`` (``data/scripts/``, the
-loader that holds ``ShardDataset``) also import where torch is blocked;
-tests/test_torch_data.py checks the rest of the data layer so."""
+loader that holds ``ShardDataset``) and the torch-free tools (the set
+generator, the loader bench) also import where torch is blocked;
+tests/test_torch_data.py checks the rest of the data layer so.  The walk
+reaches ``avsep_tpu_torch/tools/`` like every other subpackage."""
 
 import os
 import pkgutil
@@ -50,7 +52,10 @@ def test_port_and_chip_smoke_import_without_jax():
                  "data.scripts",
                  "data.scripts.post_process_csv", "data.scripts.extract_wav",
                  "data.scripts.extract_optflow",
-                 "data.scripts.make_optical_video"):
+                 "data.scripts.make_optical_video", "tools",
+                 "tools.make_synthetic_data", "tools.av_probe",
+                 "tools.sop_probe", "tools.export_reference_ckpt",
+                 "tools.schedule_proof", "tools.bench_loader"):
         assert f"avsep_tpu_torch.{name}" in mods
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _PROBE, *mods], cwd=REPO,
@@ -90,7 +95,9 @@ def test_data_scripts_and_shard_loader_import_without_torch():
     mods = ["avsep_tpu_torch.data.loader", "avsep_tpu_torch.data.scripts"] + [
         f"avsep_tpu_torch.data.scripts.{m}" for m in (
             "post_process_csv", "extract_wav", "extract_optflow",
-            "make_optical_video")]
+            "make_optical_video")] + [
+        f"avsep_tpu_torch.tools.{m}" for m in (
+            "make_synthetic_data", "bench_loader")]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _NO_TORCH, *mods], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
