@@ -5,7 +5,8 @@ The data-side modules added with ``parallel/`` (``data/scripts/``, the
 loader that holds ``ShardDataset``) and the torch-free tools (the set
 generator, the loader bench) also import where torch is blocked;
 tests/test_torch_data.py checks the rest of the data layer so.  The walk
-reaches ``avsep_tpu_torch/tools/`` like every other subpackage."""
+reaches ``avsep_tpu_torch/tools/`` like every other subpackage, the
+measurement tools among them."""
 
 import os
 import pkgutil
@@ -55,7 +56,11 @@ def test_port_and_chip_smoke_import_without_jax():
                  "data.scripts.make_optical_video", "tools",
                  "tools.make_synthetic_data", "tools.av_probe",
                  "tools.sop_probe", "tools.export_reference_ckpt",
-                 "tools.schedule_proof", "tools.bench_loader"):
+                 "tools.schedule_proof", "tools.bench_loader",
+                 "tools.measure", "tools.bench", "tools.serve_bench",
+                 "tools.latency_report", "tools.train_throughput",
+                 "tools.mfu_report", "tools.memory_report",
+                 "tools.sep_dtype_ab"):
         assert f"avsep_tpu_torch.{name}" in mods
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _PROBE, *mods], cwd=REPO,
