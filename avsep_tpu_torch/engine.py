@@ -48,6 +48,7 @@ fall back to the CPU.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -172,10 +173,17 @@ _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
+@functools.lru_cache(maxsize=None)
+def _imagenet_stats(device: torch.device):
+    """The ImageNet mean and std on ``device``, made once per device: a
+    copy from the host inside a step would stop a CUDA graph's capture."""
+    return (torch.tensor(_IMAGENET_MEAN, dtype=torch.float32, device=device),
+            torch.tensor(_IMAGENET_STD, dtype=torch.float32, device=device))
+
+
 def imagenet_normalize(x: torch.Tensor) -> torch.Tensor:
     """(x - ImageNet mean) / std for float RGB in [0, 1], channels last."""
-    mean = torch.tensor(_IMAGENET_MEAN, dtype=torch.float32, device=x.device)
-    std = torch.tensor(_IMAGENET_STD, dtype=torch.float32, device=x.device)
+    mean, std = _imagenet_stats(x.device)
     return (x - mean) / std
 
 

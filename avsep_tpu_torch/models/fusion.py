@@ -27,6 +27,7 @@ slot swap takes its uniforms as an input, or draws them from an explicit
 
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import NamedTuple, Optional
 
@@ -56,12 +57,19 @@ def _attend(x_pc: torch.Tensor, v: torch.Tensor, att_type: str,
         return sim if att_temp == 1.0 else sim / att_temp
     if att_type == "sig":
         d = x_pc.shape[-1]
-        logits = torch.sum(xb * v / torch.sqrt(torch.tensor(
-            float(d), dtype=v.dtype, device=v.device)), dim=-1)
+        logits = torch.sum(xb * v / torch.sqrt(
+            _scalar(float(d), v.dtype, v.device)), dim=-1)
         if att_temp != 1.0:
             logits = logits / att_temp
         return torch.sigmoid(logits)
     raise ValueError(f"unknown att_type {att_type}")
+
+
+@functools.lru_cache(maxsize=None)
+def _scalar(value: float, dtype: torch.dtype, device) -> torch.Tensor:
+    """A 0-d tensor of ``value`` on ``device``, made once: a copy from the
+    host inside a step would stop a CUDA graph's capture."""
+    return torch.tensor(value, dtype=dtype, device=device)
 
 
 def _pool_chunks(x: torch.Tensor, C: int) -> torch.Tensor:
@@ -82,9 +90,11 @@ def _broadcast_guidance(feat: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return feat.reshape(B, 1, 1, C * Dc).expand(B, h, w, C * Dc)
 
 
+@functools.lru_cache(maxsize=None)
 def _perms(C: int, device=None) -> torch.Tensor:
     """All C! orderings as one index table [P, C] in itertools order, the
-    identity first (ties in the argmax below go to it)."""
+    identity first (ties in the argmax below go to it); made once per
+    device, as :func:`_scalar`."""
     return torch.tensor(list(itertools.permutations(range(C))),
                         dtype=torch.long, device=device)
 

@@ -188,7 +188,7 @@ def frame_window_plain(padded: torch.Tensor, n_frames: int, n_fft: int,
                        hop: int) -> torch.Tensor:
     """Plain PyTorch version of :func:`frame_window`: the hop-block framing
     of ``ops/stft.py`` times the periodic Hann window."""
-    win = torch.from_numpy(hann_periodic(n_fft)).to(padded.device)
+    win = _window_tensor(n_fft, padded.device)
     return frame_signal(padded, n_frames, n_fft, hop) * win
 
 

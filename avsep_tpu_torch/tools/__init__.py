@@ -10,7 +10,7 @@ and ``examples/`` scripts and of ``bench.py``):
 * ``export_reference_ckpt``: a checkpoint to the reference's ``.pth``
   files (on the CPU);
 * ``schedule_proof``: the learning-rate schedule across a resume;
-* ``bench_loader``: the host loader's rate (torch-free).
+* ``bench_loader``: the host loader's rate (torch-free);
 * ``bench``: batched separation clips/s, ``bench.py``'s JSON line;
 * ``serve_bench``: the service's req/s and latency under closed-loop
   clients;
@@ -18,7 +18,11 @@ and ``examples/`` scripts and of ``bench.py``):
 * ``train_throughput``: AV train steps/s;
 * ``mfu_report``: FLOPs from shapes and the MFU share of the card's peak;
 * ``memory_report``: peak memory per batch and the largest that fits;
-* ``sep_dtype_ab``: float32 against bfloat16 separation.
+* ``sep_dtype_ab``: float32 against bfloat16 separation;
+* ``trace_report``: the AV train step's device time by op category under
+  ``torch.profiler``, its top kernels and the busy share of the wall;
+* ``insitu_report``: a train step split into the device floor (a CUDA
+  graph's replay), the dispatch cost and the host data cost not hidden.
 
 ``measure`` holds what the measurement tools share.
 

@@ -226,6 +226,17 @@ script exits non-zero before printing any result.
    ``sep_dtype_ab``: every number finite, 1 / 1 launches per ``separate``
    call and 2 / 0 per train step.  ``python3 chip_smoke.py --only
    measure_tools`` runs this phase alone.
+22. trace_tools (avsep_tpu_torch/tools/, slice 12), each tool as a
+   ``python -m`` child: ``trace_report`` at flagship width, B = 16, 2
+   profiled f32 ``fft`` and 2 bf16 ``matmul`` steps (category shares
+   summing to 100, busy at most the wall, the profile's frame_window
+   launches equal to its counter's, 2 per step); ``insitu_report
+   --batch 16 --n 4`` with ``--workers 0`` and ``4`` on a class-token set
+   at 360x640: every key of the JAX
+   report, every number finite, arm A's CUDA-graph replay against an
+   eager step within ``TRAIN_TOL["loss_rel_err"]``, 2 / 0 launches per
+   step.  ``python3 chip_smoke.py --only trace_tools`` runs this phase
+   alone.
 Then the kernel table as one JSON line (launches summed over the main
 paths' runs, by path and per call), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -713,11 +724,14 @@ def profile_calls(phase: str, fn, calls: int, conv3d: bool = False,
     """torch.profiler over ``fn(0) .. fn(calls - 1)``: device ms per call by
     PyTorch operator (the kernels each one launched) and by kernel, and
     the device's busy share of the wall time (the profiler's own host
-    overhead included).  ``conv3d`` also records the operators' input
-    shapes and reports the device time of the convolutions (forward and
-    backward) on 5-D inputs and their share of the busy time."""
+    overhead included); the kernels' times through
+    ``tools.trace_report.aggregate``.  ``conv3d`` also records the
+    operators' input shapes and reports the device time of the
+    convolutions (forward and backward) on 5-D inputs and their share of
+    the busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from avsep_tpu_torch.tools import trace_report
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=conv3d) as prof:
@@ -725,24 +739,16 @@ def profile_calls(phase: str, fn, calls: int, conv3d: bool = False,
         for i in range(calls):
             fn(i)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernel_us = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            kernel_us[ev.name] = (kernel_us.get(ev.name, 0.0)
-                                  + ev.time_range.elapsed_us())
+        wall_s = time.perf_counter() - t0
+    agg = trace_report.aggregate(trace_report.kernel_records(prof), calls,
+                                 wall_s, top_k=16)
     ops = [(ev.key, ev.self_device_time_total, ev.count)
            for ev in prof.key_averages()
            if ev.device_type == DeviceType.CPU
            and ev.self_device_time_total > 0]
     ops.sort(key=lambda r: -r[1])
-    kernels_top = sorted(kernel_us.items(), key=lambda kv: -kv[1])
-    busy = sum(kernel_us.values())
+    busy = agg["device_busy_ms_per_step"] * calls * 1e3
     per_call = 1e-3 / calls
-    # the port's own kernels, too small for the top of the list
-    own = {name: per_call * sum(us for k, us in kernel_us.items()
-                                if f"{name}_kernel" in k)
-           for name in ("frame_window", "overlap_add")}
     if conv3d:
         us = sum(ev.self_device_time_total
                  for ev in prof.key_averages(group_by_input_shape=True)
@@ -751,15 +757,19 @@ def profile_calls(phase: str, fn, calls: int, conv3d: bool = False,
                  and any(len(sh) == 5 for sh in ev.input_shapes))
         fields.update(conv3d_ms_per_call=us * per_call,
                       conv3d_share_of_busy=us / busy if busy else 0.0)
+    port = agg["port_kernels"]
     emit(phase, calls=calls, batch=B, **fields,
-         wall_ms_per_call=wall_us * per_call,
-         device_busy_ms_per_call=busy * per_call,
-         device_idle_share=max(0.0, 1.0 - busy / wall_us),
+         wall_ms_per_call=agg["wall_ms_per_step"],
+         device_busy_ms_per_call=agg["device_busy_ms_per_step"],
+         device_idle_share=max(0.0, 1.0 - agg["device_busy_frac_of_wall"]),
          ops_ms_per_call=[[k, us * per_call, n // calls]
                           for k, us, n in ops[:12]],
-         kernels_ms_per_call=[[k[:80], us * per_call]
-                              for k, us in kernels_top[:16]],
-         port_kernels_ms_per_call=own)
+         kernels_ms_per_call=[[row["op"][:80], row["ms_per_step"]]
+                              for row in agg["top_ops_pct"]],
+         # the port's own kernels, too small for the top of the list
+         port_kernels_ms_per_call={
+             "frame_window": port["frame_window"]["ms_per_step"],
+             "overlap_add": port["overlap_add_normalize"]["ms_per_step"]})
 
 
 def train_batches(gen, dev, n, batch, aud_len=AUD_LEN, img=224):
@@ -3637,6 +3647,122 @@ def measure_tools(dev):
     return launches, calls
 
 
+# ------------------------------------------------------------- slice 12
+
+TRACE_DIR = os.path.join(OUT_DIR, "trace")
+# trace_tools: trace_report's runs (dtype, dft) and steps; insitu_report's
+# steps and host loaders; the class-token set it reads (360x640 frames, as
+# the JAX tool's instructions write it, 8 s clips to cover 65535 samples)
+TRACE_RUNS = (("float32", "fft"), ("bfloat16", "matmul"))
+TRACE_STEPS = 2
+INSITU_N = 4
+INSITU_WORKERS = (0, 4)
+INSITU_SET = ["--classes", "cello", "flute", "violin", "trumpet",
+              "--videos_per_class", "3", "--duration", "8", "--class_tokens",
+              "--img_size", "360", "640"]
+
+
+def check_port_kernels(phase, port, steps):
+    """The profile's frame_window launches equal its wrapper's counter over
+    the same steps, 2 per train step; no overlap_add_normalize."""
+    fw, ola = port["frame_window"], port["overlap_add_normalize"]
+    if not (fw["launches"] == fw["launches_counted"] == 2 * steps
+            and ola["launches"] == ola["launches_counted"] == 0):
+        raise AssertionError(f"{phase}: port kernels {port}, expected "
+                             f"{2 * steps} frame_window launches")
+
+
+def trace_tools():
+    """trace_tools: the two profiling tools of ``avsep_tpu_torch/tools/``
+    on the card, each as its command line runs, in a child process
+    (``run_module``): in this script's own process, after the earlier
+    phases' profiler sessions, a profile was seen to miss kernel events
+    (2 of the 4 frame_window launches its counter saw).
+
+    1. ``python -m avsep_tpu_torch.tools.trace_report 16 TRACE_STEPS dtype
+       dft`` for each of TRACE_RUNS (flagship width, its warm-up step
+       first): the category shares sum to 100 within 1e-6, busy at most
+       the wall, and the profile's ``frame_window_kernel`` events equal
+       its counter's delta over the profiled steps, 2 per step;
+    2. ``python -m avsep_tpu_torch.tools.insitu_report --batch 16 --n
+       INSITU_N`` with each of INSITU_WORKERS host loaders, on a
+       class-token set that ``tools.make_synthetic_data`` writes under
+       build/chip_smoke/trace/: every key of the JAX report and the
+       additions, every number finite, arm A a CUDA graph whose first
+       replay's loss is within ``TRAIN_TOL["loss_rel_err"]`` of an eager
+       step's from the same state, arm C's profile as in 1.
+
+    Each child's launches must be 2 / 0 per train step it reports.
+    Returns the launches and the calls by run."""
+    from avsep_tpu_torch.tools import insitu_report, make_synthetic_data
+    t_phase = time.perf_counter()
+    launches, calls, out = {}, {}, {}
+    for dtype, dft in TRACE_RUNS:
+        name = f"trace_report_{dtype}_{dft}"
+        path = os.path.join(TRACE_DIR, f"{name}.json")
+        wall, _, got, _ = run_module(
+            f"trace_tools {name}", "avsep_tpu_torch.tools.trace_report",
+            [str(B), str(TRACE_STEPS), dtype, dft, "--out", path])
+        with open(path) as f:
+            r = json.load(f)
+        bad = nonfinite(r)
+        total = sum(r["category_pct"].values())
+        if bad or abs(total - 100.0) > 1e-6 or \
+                r["device_busy_ms_per_step"] > r["wall_ms_per_step"]:
+            raise AssertionError(f"trace_tools {name}: non-finite {bad}, "
+                                 f"shares sum to {total}, busy "
+                                 f"{r['device_busy_ms_per_step']} ms of "
+                                 f"{r['wall_ms_per_step']}")
+        check_port_kernels(f"trace_tools {name}", r["port_kernels"],
+                           TRACE_STEPS)
+        n = r["calls"]["train_step"]
+        expect_launches(f"trace_tools {name}", got, 2 * n, 0)
+        launches[name], calls[name] = got, n
+        out[name] = {k: r[k] for k in (
+            "wall_ms_per_step", "device_busy_ms_per_step",
+            "device_busy_frac_of_wall", "category_pct", "port_kernels",
+            "card")}
+        out[name].update(top_ops_pct=r["top_ops_pct"][:6], wall_s=wall)
+
+    root = os.path.join(TRACE_DIR, "insitu_set")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    make_synthetic_data.main(["--root", root, *INSITU_SET])
+    out["insitu_set_s"] = time.perf_counter() - t0
+    want_keys = set(insitu_report.JAX_KEYS) | set(insitu_report.ADDED_KEYS)
+    for workers in INSITU_WORKERS:
+        name = f"insitu_report_w{workers}"
+        path = os.path.join(TRACE_DIR, f"{name}.json")
+        wall, _, got, _ = run_module(
+            f"trace_tools {name}", "avsep_tpu_torch.tools.insitu_report",
+            ["--batch", str(B), "--n", str(INSITU_N), "--root", root,
+             "--workers", str(workers), "--out", path])
+        with open(path) as f:
+            r = json.load(f)
+        numbers = {k: v for k, v in r.items() if k.startswith("clips_per_s")
+                   or k.endswith(("_ms", "_ms_per_step", "_insitu_wall"))}
+        bad = nonfinite(r) + [k for k, v in numbers.items() if v is None]
+        if set(r) != want_keys or bad or \
+                not r["arm_a_method"].startswith("cuda_graph"):
+            raise AssertionError(f"trace_tools {name}: keys "
+                                 f"{sorted(set(r) ^ want_keys)}, not finite "
+                                 f"{bad}, arm A {r['arm_a_method']}")
+        if not r["arm_a_check"]["rel_err"] <= TRAIN_TOL["loss_rel_err"]:
+            raise AssertionError(f"trace_tools {name}: arm A's first replay "
+                                 f"against an eager step {r['arm_a_check']}"
+                                 f" > {TRAIN_TOL['loss_rel_err']}")
+        check_port_kernels(f"trace_tools {name} arm C",
+                           r["arm_c_port_kernels"], INSITU_N)
+        n = r["calls"]["train_step"]
+        expect_launches(f"trace_tools {name}", got, 2 * n, 0)
+        launches[name], calls[name] = got, n
+        out[name] = {**numbers, "arm_a_check": r["arm_a_check"],
+                     "frame_route": r["frame_route"], "wall_s": wall}
+    emit("trace_tools", seconds=time.perf_counter() - t_phase,
+         nvidia_smi=nvidia_smi_line(), **out)
+    return launches, calls
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -3722,6 +3848,10 @@ def main() -> int:
     more, more_calls = measure_tools(dev)
     launches.update(more)
     calls.update(more_calls)
+    # slice 12: the profiling tools, one path per tool run
+    more, more_calls = trace_tools()
+    launches.update(more)
+    calls.update(more_calls)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3752,15 +3882,16 @@ def only(argv) -> int:
     kernels' build and the cli_launch phase alone, for a machine with two
     or more cards (its part (c)); ``--only proof_tools`` the same with the
     proof_tools phase (without the train phase's rates), ``--only
-    measure_tools`` with the measure_tools phase; then the launches by
-    path."""
+    measure_tools`` with the measure_tools phase, ``--only trace_tools``
+    with the trace_tools phase; then the launches by path."""
     phases = {"cli_launch": cli_launch,
               "proof_tools": lambda: proof_tools(torch.device(DEVICE)),
-              "measure_tools": lambda: measure_tools(torch.device(DEVICE))}
+              "measure_tools": lambda: measure_tools(torch.device(DEVICE)),
+              "trace_tools": trace_tools}
     if len(argv) != 1 or argv[0] not in phases or \
             not torch.cuda.is_available():
-        print("chip_smoke --only: cli_launch, proof_tools or measure_tools, "
-              "on a GPU", file=sys.stderr)
+        print("chip_smoke --only: cli_launch, proof_tools, measure_tools or "
+              "trace_tools, on a GPU", file=sys.stderr)
         return 2
     engine.full_float32()
     emit("card", nvidia_smi=nvidia_smi_line(),

@@ -6,7 +6,7 @@ loader that holds ``ShardDataset``) and the torch-free tools (the set
 generator, the loader bench) also import where torch is blocked;
 tests/test_torch_data.py checks the rest of the data layer so.  The walk
 reaches ``avsep_tpu_torch/tools/`` like every other subpackage, the
-measurement tools among them."""
+measurement and profiling tools among them."""
 
 import os
 import pkgutil
@@ -60,7 +60,8 @@ def test_port_and_chip_smoke_import_without_jax():
                  "tools.measure", "tools.bench", "tools.serve_bench",
                  "tools.latency_report", "tools.train_throughput",
                  "tools.mfu_report", "tools.memory_report",
-                 "tools.sep_dtype_ab"):
+                 "tools.sep_dtype_ab", "tools.trace_report",
+                 "tools.insitu_report"):
         assert f"avsep_tpu_torch.{name}" in mods
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _PROBE, *mods], cwd=REPO,
