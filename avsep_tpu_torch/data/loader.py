@@ -25,6 +25,8 @@ from typing import Dict, Iterator, List, Sequence
 
 import numpy as np
 
+from avsep_tpu_torch.utils import spans
+
 
 class ConcatDataset:
     """Concatenation of map-style datasets (torch ConcatDataset shape)."""
@@ -286,7 +288,8 @@ class DevicePrefetcher:
     """Overlap the host->device copy with the device's work: a daemon
     thread pulls host batches from ``host_iter`` and applies ``put_fn``
     ``depth`` batches ahead, so the copy of batch i+1 is issued while batch
-    i runs."""
+    i runs.  Each ``put_fn`` call is the span ``train.to_device`` (attribute
+    ``batch``: its index in ``host_iter``) on the thread."""
 
     def __init__(self, host_iter, put_fn, depth: int = 2):
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
@@ -307,10 +310,12 @@ class DevicePrefetcher:
 
         def run():
             try:
-                for b in host_iter:
+                for n, b in enumerate(host_iter):
                     if self._stop.is_set():
                         return
-                    if not _put(put_fn(b)):
+                    with spans.span("train.to_device", batch=n):
+                        item = put_fn(b)
+                    if not _put(item):
                         return
             except Exception as e:  # raised again in the consumer
                 self._err = e

@@ -33,7 +33,6 @@ and the standard library and the workers stay light.
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 
@@ -213,6 +212,7 @@ def _train_loop(cfg, state, history, best_holder, start_i, steps, use_vis_fn,
     from avsep_tpu_torch import checkpoint as ckpt_io
     from avsep_tpu_torch.evaluate import evaluate
     from avsep_tpu_torch.parallel import distributed as pdist
+    from avsep_tpu_torch.utils import spans
 
     iter_time, data_time, match_meter = (AverageMeter(), AverageMeter(),
                                          AverageMeter())
@@ -220,11 +220,16 @@ def _train_loop(cfg, state, history, best_holder, start_i, steps, use_vis_fn,
     err_total = err_av = err_ao = 0.0
     av_count = ao_count = 0
     prof = None
+    own_spans = False   # the window turned the span recorder on
 
     def _stop_trace():
-        nonlocal prof
+        nonlocal prof, own_spans
         if prof is not None:
             prof.stop()
+            if own_spans:
+                spans.disable()
+                spans.drain()      # the trace holds them
+                own_spans = False
             path = os.path.join(cfg.profile_dir, "trace.json")
             prof.export_chrome_trace(path)
             prof = None
@@ -242,19 +247,25 @@ def _train_loop(cfg, state, history, best_holder, start_i, steps, use_vis_fn,
                     [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
                 prof = profile(activities=acts)
                 prof.start()
+                # the trace shows the program's spans over the kernels
+                own_spans = not spans.enabled()
+                spans.enable()
             if prof is not None and \
                     i == cfg.profile_start + cfg.profile_steps:
                 _stop_trace()
 
-            tic = time.perf_counter()
+            spans.correlate(i)
             use_vis = use_vis_fn(i)
-            batch = next(av_iter if use_vis else ao_iter)
-            data_time.update(time.perf_counter() - tic)
+            with spans.timed("train.data_wait") as wait:
+                batch = next(av_iter if use_vis else ao_iter)
+            data_time.update(wait.seconds)
 
             state, metrics = steps[use_vis](state, batch, generator=swap_gen)
-            err = float(metrics["err"])
-            match_loss = float(metrics["match_loss"]) if use_vis else None
-            iter_time.update(time.perf_counter() - tic)
+            with spans.timed("train.loss_read") as read:
+                err = float(metrics["err"])
+                match_loss = float(metrics["match_loss"]) if use_vis \
+                    else None
+            iter_time.update(read.t1 - wait.t0)
 
             err_total += err
             if use_vis:
@@ -292,10 +303,12 @@ def _train_loop(cfg, state, history, best_holder, start_i, steps, use_vis_fn,
                 match_meter.initialize(0, 0)
 
             if i % cfg.eval_iter == 0 and i > 1:
-                for v in (True, False):
-                    evaluate(cfg, state.nets, val_loader, history, i, v,
-                             device=dev)
-                ckpt_io.checkpoint(cfg.ckpt, state, history, best_holder)
+                with spans.span("train.eval"):
+                    for v in (True, False):
+                        evaluate(cfg, state.nets, val_loader, history, i, v,
+                                 device=dev)
+                with spans.span("train.checkpoint"):
+                    ckpt_io.checkpoint(cfg.ckpt, state, history, best_holder)
     finally:
         # write a live trace if the loop ends or raises inside the window
         _stop_trace()

@@ -34,7 +34,11 @@ JAX device order ``(process_index, id)``:
   behind the global-batch BatchNorm (``models/layers.py``), :func:`fetch`
   gathers per-row tensors to every rank (an ``all_reduce`` of a
   zero-padded buffer that each rank fills with its rows), and
-  :func:`broadcast_` makes every rank start from rank 0's state.
+  :func:`broadcast_` makes every rank start from rank 0's state.  Each
+  collective is issued in one place (``_issue``): the span
+  ``dp.all_reduce`` or ``dp.broadcast`` and the counters
+  ``dp.collectives`` and ``dp.bytes`` while the span recorder is on
+  (``utils/spans.py``).
 * **files**: history, ``results.csv``, plots, media and checkpoints are
   written by the primary rank (:func:`is_primary`, global rank 0); a
   checkpoint save is followed by :func:`barrier`, and every rank restores.
@@ -52,6 +56,8 @@ from typing import Dict, List, Optional
 
 import torch
 import torch.distributed as dist
+
+from avsep_tpu_torch.utils import spans
 
 # a collective that waits longer than this raises (gloo) or aborts the
 # communicator (NCCL), so a rank that died cannot hang its peers for ever
@@ -205,6 +211,21 @@ def rank_rand(shape, generator: torch.Generator, device=None
     return u[rank_slice(n)]
 
 
+def _issue(name: str, t: torch.Tensor, collective) -> None:
+    """``collective(t)``: the one place a collective is issued, the span
+    ``dp.<name>`` with the counters ``dp.collectives`` and ``dp.bytes``
+    (``utils/spans.py``)."""
+    if spans.enabled():
+        spans.count("dp.collectives")
+        spans.count("dp.bytes", t.numel() * t.element_size())
+    with spans.span("dp." + name):
+        collective(t)
+
+
+def _all_reduce(t: torch.Tensor) -> None:
+    _issue("all_reduce", t, dist.all_reduce)
+
+
 def _flat_apply(tensors: List[torch.Tensor], collective) -> None:
     """``collective`` on the tensors concatenated into one buffer, the
     result copied back into them (any layout)."""
@@ -222,7 +243,7 @@ def mean_(tensors: List[torch.Tensor]) -> None:
     P = world_size()
 
     def reduce(flat):
-        dist.all_reduce(flat)
+        _all_reduce(flat)
         flat.div_(P)
     _flat_apply(tensors, reduce)
 
@@ -235,7 +256,8 @@ def broadcast_(tensors: List[torch.Tensor]) -> None:
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
     for group in by_dtype.values():
-        _flat_apply(group, lambda flat: dist.broadcast(flat, src=0))
+        _flat_apply(group, lambda flat: _issue(
+            "broadcast", flat, lambda t: dist.broadcast(t, src=0)))
 
 
 def broadcast_state(state) -> None:
@@ -270,7 +292,7 @@ def fetch(x):
     n = x.shape[0]
     buf = x.new_zeros((n * world_size(),) + tuple(x.shape[1:]))
     buf[rank_slice(n)] = x
-    dist.all_reduce(buf)
+    _all_reduce(buf)
     return buf
 
 
@@ -281,13 +303,13 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y)
+        _all_reduce(y)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g)
+        _all_reduce(g)
         return g
 
 

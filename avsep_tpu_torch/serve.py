@@ -29,6 +29,14 @@ client of either package talks to a server of the other).
   :meth:`SeparationService.draw_swap`; a JAX PRNG stream cannot be
   reproduced in torch, and a test replaces that method to inject the JAX
   service's draws.
+* **Spans.**  With the span recorder on (``utils/spans.py``) every span of
+  a request carries its request id: ``serve.recv`` and ``serve.reply`` in
+  the handler, ``serve.queue`` from ``submit`` to the worker's pickup,
+  ``serve.collect``, and ``serve.dispatch`` (the group's ids, ``rows``,
+  ``kind``) over ``serve.h2d``, ``serve.separate`` and ``serve.d2h``.
+  ``ServiceStats`` reads the dispatch and queue times always; the ``stats``
+  op returns them as ``p50_ms`` / ``p95_ms`` and ``queue_p50_ms`` /
+  ``queue_p95_ms``.
 
 In-process use::
 
@@ -47,6 +55,7 @@ flag.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import queue
@@ -63,11 +72,23 @@ import torch
 
 from avsep_tpu_torch import engine
 from avsep_tpu_torch.config import FLAGSHIP, Config
+from avsep_tpu_torch.utils import spans
+
+
+def _trim(values: list) -> None:
+    if len(values) > 4096:
+        del values[:2048]
+
+
+def _pct(values: list, p: float) -> float:
+    v = sorted(values)
+    return v[min(len(v) - 1, int(p * len(v)))] if v else 0.0
 
 
 class ServiceStats:
-    """Requests, dispatches and dispatch latency (host clock from the
-    batch's copy to the device to its wavs on the host)."""
+    """Requests, dispatches, dispatch latency (the ``serve.dispatch``
+    span's clock reads: from the batch's copy to the device to its wavs on
+    the host) and queue wait (from ``submit`` to the worker's pickup)."""
 
     def __init__(self):
         self.lock = threading.Lock()
@@ -75,25 +96,30 @@ class ServiceStats:
         self.dispatches = 0
         self.batched_rows = 0
         self.latencies_ms = []
+        self.queue_ms = []
 
     def record(self, n_rows: int, lat_ms: float):
         with self.lock:
             self.dispatches += 1
             self.batched_rows += n_rows
             self.latencies_ms.append(lat_ms)
-            if len(self.latencies_ms) > 4096:
-                del self.latencies_ms[:2048]
+            _trim(self.latencies_ms)
+
+    def record_queue(self, wait_ms: float):
+        with self.lock:
+            self.queue_ms.append(wait_ms)
+            _trim(self.queue_ms)
 
     def snapshot(self) -> Dict:
         with self.lock:
-            lat = sorted(self.latencies_ms)
-            pct = (lambda p: lat[min(len(lat) - 1,
-                                     int(p * len(lat)))] if lat else 0.0)
             return {"requests": self.requests,
                     "dispatches": self.dispatches,
                     "mean_batch": (self.batched_rows
                                    / max(self.dispatches, 1)),
-                    "p50_ms": pct(0.50), "p95_ms": pct(0.95)}
+                    "p50_ms": _pct(self.latencies_ms, 0.50),
+                    "p95_ms": _pct(self.latencies_ms, 0.95),
+                    "queue_p50_ms": _pct(self.queue_ms, 0.50),
+                    "queue_p95_ms": _pct(self.queue_ms, 0.95)}
 
 
 class SeparationService:
@@ -116,6 +142,7 @@ class SeparationService:
         self.wire = wire
         self.frames_wire = frames_wire
         self.stats = ServiceStats()
+        self._ids = itertools.count(1)
         self._q: "queue.Queue" = queue.Queue()
         self._stop = threading.Event()
         self._gen = torch.Generator().manual_seed(rng_seed)
@@ -131,12 +158,20 @@ class SeparationService:
         return (self.cfg.num_mix, T, self.cfg.imgSize, self.cfg.imgSize,
                 3)
 
+    def new_request_id(self) -> int:
+        """A request id no other request of this service carries: the
+        correlation id of the request's spans."""
+        return next(self._ids)
+
     def submit(self, audio_mix: np.ndarray,
-               frames: Optional[np.ndarray] = None) -> Future:
+               frames: Optional[np.ndarray] = None,
+               request_id: Optional[int] = None) -> Future:
         """audio_mix [L] float32 (truncated / zero-padded to cfg.audLen);
         frames ``self.frames_shape`` RGB in [0, 1] float (uint8 [0, 255]
         also accepted) for visually guided separation, or None for audio
-        only.  Returns a Future resolving to [num_mix, L'] float32 wavs."""
+        only.  Returns a Future resolving to [num_mix, L'] float32 wavs.
+        ``request_id`` (:meth:`new_request_id`, by default a new one)
+        tags the request's spans."""
         if self._stop.is_set():
             raise RuntimeError("service is closed")
         if frames is not None:
@@ -166,7 +201,8 @@ class SeparationService:
         fut: Future = Future()
         with self.stats.lock:
             self.stats.requests += 1
-        self._q.put((mix, frames, fut, time.perf_counter()))
+        rid = self.new_request_id() if request_id is None else request_id
+        self._q.put((mix, frames, fut, time.perf_counter(), rid))
         # submit/close race: if close() won, the worker is gone, so fail
         # this future instead of leaving it pending forever
         if self._stop.is_set():
@@ -208,33 +244,47 @@ class SeparationService:
         wire) and ``frames [max_batch, N, T, H, W, 3]`` (uint8, or float
         in [0, 1]) or None -> ``[max_batch, N, L']`` float32 wavs on the
         host."""
-        a = self._put(mixes)
-        if self.wire == "int16":
-            a = a.float() / 32767.0
-        f = None
-        if frames is not None:
-            f = self._put(frames)
-            if self.frames_wire != "u8":
-                f = engine.imagenet_normalize(f)
-        wavs = engine.separate(
-            self.nets, a, f, self.cfg, device=self.device,
-            swap_uniforms=None if frames is not None else self.draw_swap()
-        )["wavs"]
-        if self.wire == "int16":
-            wavs = torch.round(wavs * 32767.0).to(torch.int16)
-        wavs = wavs.cpu().numpy()
-        if self.wire == "int16":
-            wavs = wavs.astype(np.float32) / 32767.0
+        with spans.span("serve.h2d"):
+            a = self._put(mixes)
+            if self.wire == "int16":
+                a = a.float() / 32767.0
+            f = None
+            if frames is not None:
+                f = self._put(frames)
+                if self.frames_wire != "u8":
+                    f = engine.imagenet_normalize(f)
+        with spans.span("serve.separate"):
+            wavs = engine.separate(
+                self.nets, a, f, self.cfg, device=self.device,
+                swap_uniforms=None if frames is not None
+                else self.draw_swap())["wavs"]
+        with spans.span("serve.d2h"):
+            if self.wire == "int16":
+                wavs = torch.round(wavs * 32767.0).to(torch.int16)
+            wavs = wavs.cpu().numpy()
+            if self.wire == "int16":
+                wavs = wavs.astype(np.float32) / 32767.0
         return wavs
+
+    def _picked(self, req) -> float:
+        """A request's wait in the queue, ended now: the queue statistics
+        and the span ``serve.queue``.  Returns the clock read."""
+        now = time.perf_counter()
+        self.stats.record_queue((now - req[3]) * 1e3)
+        spans.add("serve.queue", req[3], now, cid=req[4])
+        return now
 
     def _collect(self):
         """The first request blocks; then drain until max_batch or the wait
-        deadline.  Returns a list of (mix, frames, future, t0)."""
+        deadline (the span ``serve.collect``, from the first request's
+        pickup).  Returns a list of (mix, frames, future, t_submit,
+        request id)."""
         first = self._q.get()
         if first is None:
             return None
+        t_first = self._picked(first)
         reqs = [first]
-        deadline = time.perf_counter() + self.max_wait_s
+        deadline = t_first + self.max_wait_s
         while len(reqs) < self.max_batch:
             left = deadline - time.perf_counter()
             if left <= 0:
@@ -246,7 +296,11 @@ class SeparationService:
             if nxt is None:
                 self._q.put(None)  # re-post the shutdown sentinel
                 break
+            self._picked(nxt)
             reqs.append(nxt)
+        if spans.enabled():
+            spans.add("serve.collect", t_first, time.perf_counter(),
+                      cid=first[4], rows=len(reqs))
         return reqs
 
     def _dispatch_group(self, group, with_frames: bool):
@@ -254,19 +308,21 @@ class SeparationService:
             return
         B = self.max_batch
         mixes = np.zeros((B, self.cfg.audLen), np.float32)
-        for i, (mix, _, _, _) in enumerate(group):
-            mixes[i] = mix
+        for i, req in enumerate(group):
+            mixes[i] = req[0]
         if self.wire == "int16":
             mixes = np.rint(mixes * 32767.0).astype(np.int16)
         frames = None
         if with_frames:
-            frames = np.stack([f for _, f, _, _ in group]
+            frames = np.stack([req[1] for req in group]
                               + [group[0][1]] * (B - len(group)))
-        t0 = time.perf_counter()
-        wavs = self._run(mixes, frames)
-        self.stats.record(len(group), (time.perf_counter() - t0) * 1e3)
-        for i, (_, _, fut, _) in enumerate(group):
-            fut.set_result(wavs[i])
+        with spans.timed("serve.dispatch", cid=group[0][4], rows=len(group),
+                         kind="av" if with_frames else "ao",
+                         requests=[req[4] for req in group]) as disp:
+            wavs = self._run(mixes, frames)
+        self.stats.record(len(group), disp.seconds * 1e3)
+        for i, req in enumerate(group):
+            req[2].set_result(wavs[i])
 
     def _worker(self):
         while not self._stop.is_set():
@@ -280,9 +336,9 @@ class SeparationService:
                     [r for r in reqs if r[1] is not None],
                     with_frames=True)
             except Exception as e:  # propagate to every waiting client
-                for _, _, fut, _ in reqs:
-                    if not fut.done():
-                        fut.set_exception(e)
+                for req in reqs:
+                    if not req[2].done():
+                        req[2].set_exception(e)
         # requests still queued behind the stop sentinel must not leave
         # their futures pending forever
         self._fail_pending()
@@ -311,11 +367,15 @@ def _recv_exact(sock, n: int) -> bytes:
     return buf
 
 
-def _recv_msg(sock):
-    (hlen,) = struct.unpack("<I", _recv_exact(sock, 4))
+def _recv_body(sock, hlen: int):
     header = json.loads(_recv_exact(sock, hlen))
     payload = _recv_exact(sock, int(header.get("payload_bytes", 0)))
     return header, payload
+
+
+def _recv_msg(sock):
+    (hlen,) = struct.unpack("<I", _recv_exact(sock, 4))
+    return _recv_body(sock, hlen)
 
 
 class _Handler(socketserver.BaseRequestHandler):
@@ -323,7 +383,11 @@ class _Handler(socketserver.BaseRequestHandler):
         svc: SeparationService = self.server.service  # type: ignore
         while True:
             try:  # wire errors end the connection
-                header, payload = _recv_msg(self.request)
+                # the wait for the client's next message is no span
+                (hlen,) = struct.unpack("<I", _recv_exact(self.request, 4))
+                rid = svc.new_request_id()
+                with spans.span("serve.recv", cid=rid):
+                    header, payload = _recv_body(self.request, hlen)
             except (ConnectionError, OSError):
                 return
             try:  # request errors are reported in-band and the (still
@@ -350,11 +414,12 @@ class _Handler(socketserver.BaseRequestHandler):
                 frames = None
                 if fs:
                     frames = np.frombuffer(payload[4 * n:], fdt).reshape(fs)
-                wavs = svc.submit(mix, frames).result()
-                _send_msg(self.request,
-                          {"ok": True, "shape": list(wavs.shape),
-                           "payload_bytes": wavs.nbytes},
-                          np.ascontiguousarray(wavs).tobytes())
+                wavs = svc.submit(mix, frames, request_id=rid).result()
+                with spans.span("serve.reply", cid=rid):
+                    _send_msg(self.request,
+                              {"ok": True, "shape": list(wavs.shape),
+                               "payload_bytes": wavs.nbytes},
+                              np.ascontiguousarray(wavs).tobytes())
             except (ConnectionError, OSError):
                 return
             except Exception as e:

@@ -111,16 +111,23 @@ def make_sop_train_step(cfg: Config, nets, use_vis: bool, stage: int,
     forward in train mode (AV at ``stage``, or AO), one backward and one
     SGD update of the groups that advance, in place; ``metrics`` holds the
     detached ``err`` and ``match_loss``.  The nets must lie on ``device``
-    (``cuda`` unless ``device="cpu"``)."""
+    (``cuda`` unless ``device="cpu"``).  The spans are
+    ``train.make_train_step``'s."""
     from avsep_tpu_torch import engine, train
     from avsep_tpu_torch.sop_engine import sop_forward
+    from avsep_tpu_torch.utils import spans
     engine.nets_device(nets, device)
+    kind = "av" if use_vis else "ao"
 
     def step(state, batch):
-        err, outputs = sop_forward(state.nets, batch, cfg, use_vis,
-                                   train=True, stage=stage)
-        train.apply_gradients(cfg, state, err, use_vis)
-        return state, train.step_metrics(err, outputs["match_loss"])
+        with spans.span("train.step", kind=kind):
+            with spans.span("train.forward"):
+                err, outputs = sop_forward(state.nets, batch, cfg, use_vis,
+                                           train=True, stage=stage)
+            train.apply_gradients(cfg, state, err, use_vis)
+            with spans.span("train.metrics"):
+                metrics = train.step_metrics(err, outputs["match_loss"])
+        return state, metrics
 
     return step
 
@@ -251,6 +258,7 @@ def _main(cfg: Config, device) -> None:
     from avsep_tpu_torch.parallel.mesh import mesh_from_config
     from avsep_tpu_torch.sop_engine import stage_for_iter
     from avsep_tpu_torch.train import batch_scheduler
+    from avsep_tpu_torch.utils import spans
 
     dev = resolve_device(device)
     pdist.validate_global_batch(cfg)
@@ -311,21 +319,23 @@ def _main(cfg: Config, device) -> None:
     best_holder = {"best_err": float(history.get("best_err", float("inf")))}
     try:
         for i in range(start_i + 1, cfg.num_iters):
-            tic = time.perf_counter()
+            spans.correlate(i)
             use_vis = use_vis_fn(i)
             stage = stage_for_iter(i, cfg.train_steps) if use_vis else 0
-            batch = next(av_iter if use_vis else ao_iter)
-            data_time.update(time.perf_counter() - tic)
+            with spans.timed("train.data_wait") as wait:
+                batch = next(av_iter if use_vis else ao_iter)
+            data_time.update(wait.seconds)
 
             key = (use_vis, stage)
             if key not in steps:
                 steps[key] = make_sop_train_step(cfg, nets, use_vis,
                                                  max(stage, 1), device=dev)
             state, metrics = steps[key](state, batch)
-            iter_time.update(time.perf_counter() - tic)
+            iter_time.update(time.perf_counter() - wait.t0)
 
             if i % cfg.disp_iter == 0 and i != 0:
-                err = float(metrics["err"])
+                with spans.span("train.loss_read"):
+                    err = float(metrics["err"])
                 print("iter: [{}/{}], stage: {}, Time: {:.2f}, "
                       "Data: {:.2f}, loss: {:.3f}".format(
                           i, cfg.num_iters, stage, iter_time.average(),
@@ -334,8 +344,11 @@ def _main(cfg: Config, device) -> None:
                 history["train"]["err"].append(err)
 
             if i % cfg.eval_iter == 0 and i > 1:
-                sop_evaluate(cfg, nets, val_loader, history, i, device=dev)
-                ckpt_io.checkpoint(cfg.ckpt, state, history, best_holder)
+                with spans.span("train.eval"):
+                    sop_evaluate(cfg, nets, val_loader, history, i,
+                                 device=dev)
+                with spans.span("train.checkpoint"):
+                    ckpt_io.checkpoint(cfg.ckpt, state, history, best_holder)
     finally:
         # release the prefetch threads and the loaders' worker processes
         av_iter.close()

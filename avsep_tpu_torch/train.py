@@ -49,6 +49,7 @@ from avsep_tpu_torch.models.torch_import import (
     load_torch_checkpoint, resnet_state_dict_from_torch,
     unet_state_dict_from_torch)
 from avsep_tpu_torch.parallel import distributed as pdist
+from avsep_tpu_torch.utils import spans
 
 
 @dataclasses.dataclass
@@ -234,14 +235,19 @@ def apply_gradients(cfg: Config, state: TrainState, err: torch.Tensor,
     """The gradient of ``err`` for the parameters of the groups that
     advance, averaged across the ranks under a process group (one
     ``all_reduce`` of one buffer: the gradient of the global batch's mean
-    loss), then one SGD update of those groups, in place; ``step`` + 1."""
+    loss), then one SGD update of those groups, in place; ``step`` + 1.
+    Spans ``train.backward``, ``train.grad_mean`` and ``train.update``
+    (``utils/spans.py``)."""
     params = dict(named_parameters(state.nets))
     groups = _groups_of(cfg, state, use_vis)
     live = [n for n in params if param_group(n) in groups]
-    grads = torch.autograd.grad(err, [params[n] for n in live],
-                                allow_unused=True)
-    pdist.mean_([g for g in grads if g is not None])
-    _sgd_update(cfg, state, params, dict(zip(live, grads)), use_vis)
+    with spans.span("train.backward"):
+        grads = torch.autograd.grad(err, [params[n] for n in live],
+                                    allow_unused=True)
+    with spans.span("train.grad_mean"):
+        pdist.mean_([g for g in grads if g is not None])
+    with spans.span("train.update"):
+        _sgd_update(cfg, state, params, dict(zip(live, grads)), use_vis)
     state.step += 1
 
 
@@ -262,16 +268,24 @@ def make_train_step(cfg: Config, nets: Nets, use_vis: bool,
     backward and one SGD update, in place; ``metrics`` holds the detached
     ``err`` and ``match_loss`` (:func:`step_metrics`).  The AO step's slot
     swap takes ``swap_uniforms [B]`` (this rank's rows) or ``generator``.
-    The nets must lie on ``device`` (``cuda`` unless ``device="cpu"``)."""
+    The nets must lie on ``device`` (``cuda`` unless ``device="cpu"``).
+    A step is the span ``train.step`` (``kind`` ``av`` or ``ao``) over
+    ``train.forward``, :func:`apply_gradients`' spans and
+    ``train.metrics``."""
     dev = engine.nets_device(nets, device)
+    kind = "av" if use_vis else "ao"
 
     def step(state: TrainState, batch, *, swap_uniforms=None,
              generator=None) -> Tuple[TrainState, Dict]:
-        err, outputs = engine.forward(
-            state.nets, batch, cfg, use_vis, train=True,
-            swap_uniforms=swap_uniforms, generator=generator)
-        apply_gradients(cfg, state, err, use_vis)
-        return state, step_metrics(err, outputs["match_loss"])
+        with spans.span("train.step", kind=kind):
+            with spans.span("train.forward"):
+                err, outputs = engine.forward(
+                    state.nets, batch, cfg, use_vis, train=True,
+                    swap_uniforms=swap_uniforms, generator=generator)
+            apply_gradients(cfg, state, err, use_vis)
+            with spans.span("train.metrics"):
+                metrics = step_metrics(err, outputs["match_loss"])
+        return state, metrics
 
     return step
 

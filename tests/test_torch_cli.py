@@ -22,6 +22,7 @@ from avsep_tpu.config import parse_args as jparse_args
 from avsep_tpu_torch import check_exp
 from avsep_tpu_torch.config import Config, parse_args
 from avsep_tpu_torch.main import main
+from avsep_tpu_torch.utils import spans
 from tests.test_dataset import AUDLEN, manifest  # noqa: F401 (fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -157,6 +158,11 @@ def test_main_train_then_eval_on_the_cpu(manifest, tmp_path, capsys):  # noqa: F
     assert os.path.exists(os.path.join(run, "state_best.pt"))
     assert os.path.exists(os.path.join(run, "loss.png"))
     assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
+    # the profiled iteration's trace shows the program's spans, and the
+    # recorder the window turned on is off again
+    with open(tmp_path / "prof" / "trace.json") as f:
+        assert '"train.step"' in f.read()
+    assert not spans.enabled() and spans.drain().records == []
     out = capsys.readouterr().out
     assert "Training Done!" in out
 

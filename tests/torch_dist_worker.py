@@ -26,7 +26,9 @@ Jobs:
   this rank's rows of each
   global batch (``replicate``); the AO swap from the injected global
   uniforms (this rank's rows) or from a generator seeded alike on every
-  rank.  The state after each step and the step's metrics.
+  rank.  The state after each step and the step's metrics; with
+  ``spans`` set, instead, the span recorder's records and counts of each
+  step beside the all-reduces the step issued.
 """
 
 import builtins
@@ -47,6 +49,7 @@ import torch.distributed as dist
 
 from avsep_tpu_torch import train
 from avsep_tpu_torch.parallel import distributed as pdist
+from avsep_tpu_torch.utils import spans
 
 
 def run_bn(job):
@@ -94,10 +97,36 @@ def run_train(job):
         n = len(batch["audios"]) // pdist.world_size()
         kw = {"generator": gen} if u is None else \
             {"swap_uniforms": u[pdist.rank_slice(n)]}
+        if job.get("spans"):
+            with issued_all_reduces() as issued, spans.recording():
+                state, m = steps[use_vis](state, rows, **kw)
+            rec = spans.drain()
+            out.append({"issued": issued, "totals": rec.totals(),
+                        "spans": [(r.name, r.id, r.parent)
+                                  for r in rec.records]})
+            continue
         state, m = steps[use_vis](state, rows, **kw)
         out.append({"metrics": {k: v.clone() for k, v in m.items()},
                     "state": copy.deepcopy(state.state_dict())})
     return out
+
+
+@contextlib.contextmanager
+def issued_all_reduces():
+    """Counts the ``torch.distributed.all_reduce`` calls made while the
+    block runs, and their bytes: ``{"calls": n, "bytes": b}``."""
+    real = dist.all_reduce
+    issued = {"calls": 0, "bytes": 0}
+
+    def counted(t, *a, **kw):
+        issued["calls"] += 1
+        issued["bytes"] += t.numel() * t.element_size()
+        return real(t, *a, **kw)
+    dist.all_reduce = counted
+    try:
+        yield issued
+    finally:
+        dist.all_reduce = real
 
 
 def run_jobs(spec_path, rank, world, init, out_path):
