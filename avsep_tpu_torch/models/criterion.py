@@ -18,6 +18,7 @@ Tensors keep the JAX package's convention: sources trailing, ``[B, ..., S]``.
 
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import Optional, Tuple
 
@@ -81,8 +82,11 @@ def multi_source_loss(preds: torch.Tensor, targets: torch.Tensor,
     return ps if per_sample else torch.mean(ps)
 
 
+@functools.lru_cache(maxsize=None)
 def _perm_table(S: int, device) -> torch.Tensor:
-    """All S! orderings ``[P, S]`` in ``itertools.permutations`` order."""
+    """All S! orderings ``[P, S]`` in ``itertools.permutations`` order, made
+    once per ``(S, device)``: a copy from the host inside a step would stop
+    a CUDA graph's capture."""
     return torch.tensor(list(itertools.permutations(range(S))),
                         dtype=torch.long, device=device)
 

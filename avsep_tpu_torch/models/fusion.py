@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import functools
 import itertools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -122,6 +122,14 @@ def _score_and_sort(maps: torch.Tensor):
     return match_loss, match_ps, best, att
 
 
+@functools.lru_cache(maxsize=None)
+def _pair_orders(device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two orderings of a pair, ``[[1, 0]]`` (swapped) and ``[[0, 1]]``
+    (kept), on ``device``; made once per device, as :func:`_scalar`."""
+    return (torch.tensor([[1, 0]], device=device),
+            torch.tensor([[0, 1]], device=device))
+
+
 def _random_slot_swap(blocks: torch.Tensor, uniforms: torch.Tensor
                       ) -> torch.Tensor:
     """Permute the per-source audio chunks per sample (reference AO_forward,
@@ -136,9 +144,8 @@ def _random_slot_swap(blocks: torch.Tensor, uniforms: torch.Tensor
     u = uniforms.to(blocks.device).reshape(B)
     if C == 2:
         swap = u <= 0.5
-        perm = torch.where(swap[:, None],
-                           torch.tensor([[1, 0]], device=blocks.device),
-                           torch.tensor([[0, 1]], device=blocks.device))
+        swapped, kept = _pair_orders(blocks.device)
+        perm = torch.where(swap[:, None], swapped, kept)
     else:
         perms = _perms(C, blocks.device)
         pick = torch.clamp((u * perms.shape[0]).long(), max=perms.shape[0] - 1)

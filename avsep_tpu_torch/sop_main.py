@@ -112,7 +112,7 @@ def make_sop_train_step(cfg: Config, nets, use_vis: bool, stage: int,
     SGD update of the groups that advance, in place; ``metrics`` holds the
     detached ``err`` and ``match_loss``.  The nets must lie on ``device``
     (``cuda`` unless ``device="cpu"``).  The spans are
-    ``train.make_train_step``'s."""
+    ``train.make_eager_train_step``'s."""
     from avsep_tpu_torch import engine, train
     from avsep_tpu_torch.sop_engine import sop_forward
     from avsep_tpu_torch.utils import spans

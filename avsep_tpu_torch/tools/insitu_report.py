@@ -5,8 +5,9 @@ Three arms at one configuration (the JAX tool's flagship, ``:81-93``: unet7
 + resnet18dilated-256, hidsep/sig, the same batch, dtype and dft), so the
 residual of a training step can be attributed:
 
-  A. **device floor**: one CUDA graph of the whole production AV step
-     (``train.make_train_step``), captured once with ``torch.cuda.graph``
+  A. **device floor**: one CUDA graph of the whole eager production AV
+     step (``train.make_eager_train_step``; ``make_train_step`` replays
+     its own graphs), captured once with ``torch.cuda.graph``
      after :data:`CAPTURE_WARMUP` eager steps on a side stream, replayed N
      times on a staged batch: wall per step with no dispatch and no host
      data, where the JAX tool runs one ``lax.scan`` dispatch over N steps.
@@ -247,7 +248,8 @@ def run(cfg: Config, state: train.TrainState, n: int, device=None,
     place), arm A and the profile on a card only; returns the report."""
     dev = engine.nets_device(state.nets, device)
     on_card = dev.type == "cuda"
-    step = train.make_train_step(cfg, state.nets, use_vis=True, device=dev)
+    step = train.make_eager_train_step(cfg, state.nets, use_vis=True,
+                                       device=dev)
     ds, loader = build_loader(cfg)
     put = putter(cfg, dev)
     host_iter = iter_forever(loader)

@@ -6,7 +6,8 @@ step (arguments + temporaries - aliased donations).  An eager port has no
 compile step, so the port reads the peak from runs: for each of {float32,
 bfloat16} x {remat off, on} it builds the train state once (seeded
 ``train.init_state`` weights), then runs one AV step
-(``train.make_train_step``) per batch, doubling the batch from
+(``train.make_eager_train_step``: each batch size once, with no graph's
+pool beside it) per batch, doubling the batch from
 ``--start_batch`` (the JAX tool's ``sweep_max_batch``) until the step no
 longer fits the budget.  A point's ``peak_bytes`` is
 ``torch.cuda.max_memory_allocated()`` after ``reset_peak_memory_stats()``,
@@ -110,8 +111,8 @@ def train_step_sweep(cfg: Config, budget_bytes: int, start_batch: int,
     base = torch.cuda.memory_allocated(device)
     state = train.init_state(cfg, engine.build_nets(cfg, device=device),
                              torch.Generator().manual_seed(0), device=device)
-    step = train.make_train_step(cfg, state.nets, use_vis=True,
-                                 device=device)
+    step = train.make_eager_train_step(cfg, state.nets, use_vis=True,
+                                       device=device)
     g = torch.Generator(device=device).manual_seed(3)
     steps = []
 

@@ -5,7 +5,8 @@ For each piece of the JAX tool -- ``prepare_stft`` (the mixture's and the
 sources' STFT, warp, weights, masks), ``frame_features`` (the frame net on
 each source's frame), ``forward_av`` (the AV training forward, no grad),
 ``separate`` (the batched separation) and ``train_step`` (forward,
-backward and SGD update) -- it gives:
+backward and SGD update, the eager step of ``train.make_eager_train_step``,
+whose operations the FLOP counter sees dispatched) -- it gives:
 
 * the FLOPs of one call, counted from shapes by
   ``torch.utils.flop_counter.FlopCounterMode`` (forward and backward);
@@ -148,7 +149,8 @@ def piece_fns(cfg: Config, state: train.TrainState, batches,
     """Each piece as ``fn(i)`` on ``batches[i % len(batches)]``; the
     forward pieces run without grad, ``train_step`` updates ``state``."""
     nets, n = state.nets, len(batches)
-    step = train.make_train_step(cfg, nets, use_vis=True, device=device)
+    step = train.make_eager_train_step(cfg, nets, use_vis=True,
+                                       device=device)
 
     @torch.no_grad()
     def prepare_stft(i):

@@ -2,8 +2,10 @@
 ``tools/trace_report.py``.
 
 The step is the JAX tool's flagship (``:118-124``; ``measure.flagship``)
-through the port's production ``train.make_train_step(cfg, nets,
-use_vis=True)``.  Its batch is drawn on the card inside the step from a
+through the port's production step as the host dispatches it launch by
+launch, ``train.make_eager_train_step(cfg, nets, use_vis=True)`` (the
+CUDA graph of ``make_train_step`` would hide each launch's host side).
+Its batch is drawn on the card inside the step from a
 seeded device ``torch.Generator``, as the JAX tool draws its batch inside
 the jitted step (``:137-145``), so the draw's device time counts alike:
 ``audios`` ``0.1 * N(0, 1)`` ``[B, 2, audLen]``, ``frames`` uniform in
@@ -205,7 +207,8 @@ def drawing_step(cfg: Config, state: train.TrainState, batch: int,
     ``train.make_train_step`` on ``state`` (in place); returns the step's
     metrics."""
     dev = engine.nets_device(state.nets, device)
-    step = train.make_train_step(cfg, state.nets, use_vis=True, device=dev)
+    step = train.make_eager_train_step(cfg, state.nets, use_vis=True,
+                                       device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def one() -> Dict:

@@ -45,11 +45,16 @@ import torch
 from avsep_tpu_torch import engine
 from avsep_tpu_torch.config import Config
 from avsep_tpu_torch.engine import Nets
+from avsep_tpu_torch.models.fusion import swap_uniforms as swap_uniforms_of
 from avsep_tpu_torch.models.torch_import import (
     load_torch_checkpoint, resnet_state_dict_from_torch,
     unet_state_dict_from_torch)
+from avsep_tpu_torch.ops import kernels
 from avsep_tpu_torch.parallel import distributed as pdist
 from avsep_tpu_torch.utils import spans
+
+# the port's kernels whose launch counters a replay advances
+LAUNCHED = ("frame_window", "overlap_add_normalize")
 
 
 @dataclasses.dataclass
@@ -261,33 +266,233 @@ def step_metrics(err: torch.Tensor, match_loss: torch.Tensor
     return metrics
 
 
-def make_train_step(cfg: Config, nets: Nets, use_vis: bool,
-                    device=None) -> Callable:
+def _step(cfg: Config, use_vis: bool, state: TrainState, batch,
+          swap_uniforms, generator) -> Tuple[TrainState, Dict]:
+    """One forward, backward and SGD update in place, under the spans
+    ``train.forward``, :func:`apply_gradients`' and ``train.metrics``."""
+    with spans.span("train.forward"):
+        err, outputs = engine.forward(
+            state.nets, batch, cfg, use_vis, train=True,
+            swap_uniforms=swap_uniforms, generator=generator)
+    apply_gradients(cfg, state, err, use_vis)
+    with spans.span("train.metrics"):
+        metrics = step_metrics(err, outputs["match_loss"])
+    return state, metrics
+
+
+def make_eager_train_step(cfg: Config, nets: Nets, use_vis: bool,
+                          device=None) -> Callable:
     """Returns ``step(state, batch, *, swap_uniforms=None, generator=None)
     -> (state, metrics)``: one forward (AV if ``use_vis``, else AO), one
-    backward and one SGD update, in place; ``metrics`` holds the detached
-    ``err`` and ``match_loss`` (:func:`step_metrics`).  The AO step's slot
-    swap takes ``swap_uniforms [B]`` (this rank's rows) or ``generator``.
-    The nets must lie on ``device`` (``cuda`` unless ``device="cpu"``).
-    A step is the span ``train.step`` (``kind`` ``av`` or ``ao``) over
+    backward and one SGD update, in place, each operation dispatched from
+    the host as it comes; ``metrics`` holds the detached ``err`` and
+    ``match_loss`` (:func:`step_metrics`).  The AO step's slot swap takes
+    ``swap_uniforms [B]`` (this rank's rows) or ``generator``.  The nets
+    must lie on ``device`` (``cuda`` unless ``device="cpu"``).  A step is
+    the span ``train.step`` (``kind`` ``av`` or ``ao``) over
     ``train.forward``, :func:`apply_gradients`' spans and
     ``train.metrics``."""
-    dev = engine.nets_device(nets, device)
+    engine.nets_device(nets, device)
     kind = "av" if use_vis else "ao"
 
     def step(state: TrainState, batch, *, swap_uniforms=None,
              generator=None) -> Tuple[TrainState, Dict]:
         with spans.span("train.step", kind=kind):
-            with spans.span("train.forward"):
-                err, outputs = engine.forward(
-                    state.nets, batch, cfg, use_vis, train=True,
-                    swap_uniforms=swap_uniforms, generator=generator)
-            apply_gradients(cfg, state, err, use_vis)
-            with spans.span("train.metrics"):
-                metrics = step_metrics(err, outputs["match_loss"])
-        return state, metrics
+            return _step(cfg, use_vis, state, batch, swap_uniforms,
+                         generator)
 
     return step
+
+
+def make_train_step(cfg: Config, nets: Nets, use_vis: bool,
+                    device=None) -> Callable:
+    """The step of :func:`make_eager_train_step`, which on a CUDA device
+    outside a process group runs as one replay of a CUDA graph per call
+    (:class:`GraphedStep`); on the CPU it is the eager step itself."""
+    dev = engine.nets_device(nets, device)
+    eager = make_eager_train_step(cfg, nets, use_vis, dev)
+    if dev.type != "cuda":
+        return eager
+    return GraphedStep(cfg, use_vis, eager,
+                       next(nets.sound.parameters()).device)
+
+
+def learning_rates(cfg: Config, state: TrainState, use_vis: bool
+                   ) -> Tuple[Tuple[str, float], ...]:
+    """``(group, lr)`` of each group that advances in a step, at the
+    group's count, as :func:`_sgd_update` reads them."""
+    return tuple((g, lr_at(_base_lr(cfg, g), cfg.lr_steps,
+                           state.opt_state[g].count))
+                 for g in _groups_of(cfg, state, use_vis))
+
+
+def graphable(device: torch.device) -> bool:
+    """Whether a step on ``device`` may run as a CUDA graph: a CUDA device
+    and no process group (a group's collectives stay eager)."""
+    return device.type == "cuda" and not pdist.active()
+
+
+def _addresses(state: TrainState, mods: List[torch.nn.Module]) -> tuple:
+    """The address of every tensor a step reads and writes in place: the
+    parameters and buffers of ``mods`` (every module of the state's nets)
+    and the momentum buffers.  It reads each module's own dicts: walking
+    ``net.parameters()`` on every call costs the host several times more."""
+    out = [t.data_ptr() for m in mods
+           for d in (m._parameters, m._buffers) for t in d.values()
+           if t is not None]
+    out += [b.data_ptr() for gs in state.opt_state.values() if gs is not None
+            for b in gs.momentum.values()]
+    return tuple(out)
+
+
+@dataclasses.dataclass
+class _Graph:
+    """One captured step: its key, the graph, its static inputs (the batch
+    and, for an AO step, the slot swap's uniforms), its static metrics, the
+    groups it advances and the kernel launches it holds."""
+    key: tuple
+    graph: "torch.cuda.CUDAGraph"
+    batch: Dict[str, torch.Tensor]
+    uniforms: Optional[torch.Tensor]
+    metrics: Dict[str, torch.Tensor]
+    groups: List[str]
+    launches: Dict[str, int]
+
+
+class GraphedStep:
+    """:func:`make_eager_train_step`'s step, replayed as one CUDA graph.
+
+    A call runs eager unless :func:`graphable` holds and every value of
+    the batch is a tensor on the nets' device.  Otherwise it is keyed by
+    the batch's shapes, dtypes and strides, :func:`learning_rates` and the
+    addresses of the state's tensors (:func:`_addresses`): the first
+    call with a key runs eager (and warms cuDNN, cuBLAS, the caching
+    allocator and the cached constants the capture must find); the second
+    captures the step into a graph with a private memory pool, then
+    replays it once as that step; later calls copy the batch into the
+    graph's static inputs (device to device, on the current stream) and
+    replay.  A new key drops the old graph when it is captured: a new
+    batch shape, a learning rate past an ``lr_steps`` boundary, a state
+    whose tensors were rebuilt (a state loaded in place keeps its
+    addresses, and its graphs).
+
+    The replay is the eager step's kernels in its order; the host keeps
+    what the graph cannot: the AO slot swap's uniforms are drawn from the
+    same generator as the eager step draws them and reach the static input
+    through pinned memory without blocking (the caching host allocator
+    reuses a pinned block only once its copy has landed); each advancing
+    group's count and ``step`` go up by one; the kernels' launch counters
+    (``ops/kernels.py``) go up by the launches the capture counted; the
+    nets are put back in train mode.  ``metrics`` are fresh copies of the
+    graph's static outputs.  A step is the span ``train.step`` with the
+    counter ``train.graph_capture`` or ``train.graph_replay``; the inner
+    spans are recorded at the capture only.  The graphs and their pools
+    are this object's: dropping it frees them."""
+
+    def __init__(self, cfg: Config, use_vis: bool, eager: Callable,
+                 device: torch.device):
+        self.cfg, self.use_vis, self.eager, self.device = (
+            cfg, use_vis, eager, device)
+        self.kind = "av" if use_vis else "ao"
+        self.graph: Optional[_Graph] = None
+        self.seen: Optional[tuple] = None   # the last key that ran eager
+        self.nets, self.mods = None, []     # the state's nets, their modules
+
+    def __call__(self, state: TrainState, batch, *, swap_uniforms=None,
+                 generator=None) -> Tuple[TrainState, Dict]:
+        if not (graphable(self.device) and batch and all(
+                isinstance(v, torch.Tensor) and v.device == self.device
+                for v in batch.values())):
+            return self.eager(state, batch, swap_uniforms=swap_uniforms,
+                              generator=generator)
+        if state.nets is not self.nets:
+            self.nets = state.nets
+            self.mods = [m for _, net in modules(state.nets)
+                         for m in net.modules()]
+        key = (tuple((k, tuple(v.shape), v.dtype, v.stride())
+                     for k, v in sorted(batch.items())),
+               learning_rates(self.cfg, state, self.use_vis),
+               _addresses(state, self.mods))
+        if self.graph is not None and self.graph.key == key:
+            return self._replay(state, batch, swap_uniforms, generator)
+        if key != self.seen:
+            self.seen = key
+            return self.eager(state, batch, swap_uniforms=swap_uniforms,
+                              generator=generator)
+        self.graph = None           # its pool goes before the next fills
+        return self._capture(key, state, batch, swap_uniforms, generator)
+
+    def _uniforms(self, batch, swap_uniforms, generator):
+        """The AO slot swap's ``[B]`` draw, made as the eager step makes
+        it; None for an AV step, which draws none."""
+        if self.use_vis:
+            return None
+        rows = next(iter(batch.values())).shape[0]
+        return swap_uniforms_of(rows, swap_uniforms, generator)
+
+    def _put_uniforms(self, static: torch.Tensor, u: torch.Tensor) -> None:
+        if u.device.type == "cpu":
+            u = u.pin_memory()
+        static.copy_(u, non_blocking=True)
+
+    def _capture(self, key, state: TrainState, batch, swap_uniforms,
+                 generator) -> Tuple[TrainState, Dict]:
+        u = self._uniforms(batch, swap_uniforms, generator)
+        static = {k: v.clone() for k, v in batch.items()}
+        static_u = None
+        if u is not None:
+            static_u = torch.empty(u.shape, dtype=torch.float32,
+                                   device=self.device)
+            self._put_uniforms(static_u, u)
+        groups = _groups_of(self.cfg, state, self.use_vis)
+        counts = {g: state.opt_state[g].count for g in groups}
+        step0 = state.step
+        launches0 = {k: getattr(kernels, k).launches for k in LAUNCHED}
+        graph = torch.cuda.CUDAGraph()
+        with spans.span("train.step", kind=self.kind):
+            spans.count("train.graph_capture")
+            try:
+                # thread_local: the loader's prefetch thread may go on
+                # pinning and copying batches during the capture, which
+                # the global mode forbids in every thread
+                with torch.cuda.graph(graph,
+                                      capture_error_mode="thread_local"):
+                    _, metrics = _step(self.cfg, self.use_vis, state,
+                                       static, static_u, None)
+            except BaseException:
+                # the capture ran no kernel: the host state stays too
+                for g, c in counts.items():
+                    state.opt_state[g].count = c
+                state.step = step0
+                raise
+            graph.replay()
+        self.graph = _Graph(
+            key, graph, static, static_u, metrics, groups,
+            {k: getattr(kernels, k).launches - launches0[k]
+             for k in LAUNCHED})
+        return state, {k: v.clone() for k, v in metrics.items()}
+
+    def _replay(self, state: TrainState, batch, swap_uniforms,
+                generator) -> Tuple[TrainState, Dict]:
+        gr = self.graph
+        with spans.span("train.step", kind=self.kind):
+            spans.count("train.graph_replay")
+            for k, t in gr.batch.items():
+                t.copy_(batch[k], non_blocking=True)
+            if gr.uniforms is not None:
+                self._put_uniforms(gr.uniforms, self._uniforms(
+                    batch, swap_uniforms, generator))
+            gr.graph.replay()
+            for g in gr.groups:
+                state.opt_state[g].count += 1
+            state.step += 1
+            for k, n in gr.launches.items():
+                getattr(kernels, k).launches += n
+            for _, net in modules(state.nets):
+                if not net.training:
+                    net.train(True)
+            metrics = {k: v.clone() for k, v in gr.metrics.items()}
+        return state, metrics
 
 
 def batch_scheduler(cfg: Config) -> Callable[[int], bool]:

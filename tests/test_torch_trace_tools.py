@@ -319,18 +319,19 @@ def _tensors(state):
 
 
 def test_the_profiled_step_is_the_production_step(small, monkeypatch):
-    """One step through the tool equals one ``train.make_train_step`` step
-    on the same draws, bit for bit, and the tool builds its step with
-    ``make_train_step``."""
+    """One step through the tool equals one eager production step
+    (``train.make_eager_train_step``) on the same draws, bit for bit, and
+    the tool builds its step with ``make_eager_train_step``, so that it
+    profiles the host's dispatch of every launch."""
     cfg, nets = small
     built = []
-    real = train.make_train_step
+    real = train.make_eager_train_step
 
     def spy(*args, **kw):
         built.append((args[2] if len(args) > 2 else kw["use_vis"]))
         return real(*args, **kw)
 
-    monkeypatch.setattr(trace_report.train, "make_train_step", spy)
+    monkeypatch.setattr(trace_report.train, "make_eager_train_step", spy)
     a, b = _state(cfg, copy.deepcopy(nets)), _state(cfg, copy.deepcopy(nets))
     got = trace_report.drawing_step(cfg, a, B, seed=5, device="cpu")()
     assert built == [True]
