@@ -27,6 +27,11 @@ def conv_flops(b: int, cin: int, cout: int, k: int, hout: int,
     return 2 * b * cin * cout * k * k * hout * wout
 
 
+def conv3d_flops(b: int, cin: int, cout: int, kt: int, kh: int, kw: int,
+                 tout: int, hout: int, wout: int) -> int:
+    return 2 * b * cin * cout * kt * kh * kw * tout * hout * wout
+
+
 def _out(size: int, k: int, s: int, p: int, d: int = 1) -> int:
     return (size + 2 * p - d * (k - 1) - 1) // s + 1
 
@@ -75,6 +80,36 @@ def resnet18_dilated(b: int, h: int, w: int, fc_dim: int) -> List[Conv]:
     return out
 
 
+def resnet3d_fast(b: int, t: int, h: int, w: int,
+                  base: int = 8, blocks=(3, 4, 6, 3)) -> List[Conv]:
+    """The SlowFast fast pathway (ResNet3d-50 at ``base`` channels) on
+    ``[b, 3, t, h, w]`` clips (data: the stem takes no input gradient):
+    the 5x7x7 stem at stride (1, 2, 2), a (1, 3, 3) max-pool at stride
+    (1, 2, 2), then bottlenecks of a 3x1x1 conv1, a 1x3x3 conv2 carrying
+    the stage's spatial stride, a 1x1x1 conv3 to 4 x planes, and a 1x1x1
+    strided downsample where the shape changes.  Time keeps its length."""
+    out: List[Conv] = []
+    h, w = _out(h, 7, 2, 3), _out(w, 7, 2, 3)
+    out.append((conv3d_flops(b, 3, base, 5, 7, 7, t, h, w), False))
+    h, w = _out(h, 3, 2, 1), _out(w, 3, 2, 1)            # max-pool
+    cin = base
+    for stage, n in enumerate(blocks):
+        planes = base * 2 ** stage
+        for block in range(n):
+            s = 2 if stage > 0 and block == 0 else 1
+            ho, wo = _out(h, 3, s, 1), _out(w, 3, s, 1)
+            out.append((conv3d_flops(b, cin, planes, 3, 1, 1, t, h, w), True))
+            out.append((conv3d_flops(b, planes, planes, 1, 3, 3, t, ho, wo),
+                        True))
+            out.append((conv3d_flops(b, planes, 4 * planes, 1, 1, 1, t, ho,
+                                     wo), True))
+            if s != 1 or cin != 4 * planes:
+                out.append((conv3d_flops(b, cin, 4 * planes, 1, 1, 1, t, ho,
+                                         wo), True))
+            h, w, cin = ho, wo, 4 * planes
+    return out
+
+
 def forward(convs: List[Conv]) -> int:
     return sum(f for f, _ in convs)
 
@@ -93,14 +128,19 @@ def _shapes(cfg: Dict) -> Tuple[int, int, int]:
 
 def train_step(cfg: Dict, b: int, use_vis: bool, model: str) -> int:
     """FLOPs of one training step of ``b`` rows: ``model`` ``avsep`` (the
-    joint AV double pass, or the AO pass) or ``sop`` (stage 3, or AO)."""
+    joint AV double pass over each source's frame net, or under
+    ``fusion_type CoLoc_ClipAtt`` its motion net over ``clip_len`` frames,
+    and no frame net; or the AO pass) or ``sop`` (stage 3, or AO)."""
     bins, frames, nd = _shapes(cfg)
     n, img = cfg["num_mix"], cfg["imgSize"]
     if model == "avsep":
         net = unet(b, bins, frames, cfg["num_channels"], nd)
         if not use_vis:
             return trained(net)
-        vis = resnet18_dilated(b, img, img, cfg["vis_channels"])
+        if cfg["fusion_type"] == "CoLoc_ClipAtt":      # the motion net
+            vis = resnet3d_fast(b, cfg["clip_len"], img, img)
+        else:
+            vis = resnet18_dilated(b, img, img, cfg["vis_channels"])
         return 2 * trained(net) + n * trained(vis)
     c = cfg["num_channels"]
     net = unet(b, bins, frames, c, nd, extra=c * n)

@@ -9,11 +9,14 @@ SoP++ curriculum stage, follow from it and the configuration's flags);
 of the profiled stretch.
 
 Set-up builds the program's nets and state once, loads the benchmark's
-seeded weights, and drives the first three iterations through the same
-call the window makes, on batches whose clips all differ; those steps warm
-both step kinds, and the reference follows them after the window (the
-program's losses, its first gradient as the optimizer got it, and the
-parameters' change over the three).  Two more steps finish the warm-up.
+seeded weights, stages the pool (with a video clip per entry where the
+configuration loads clips; an AV batch carries the visual stream its
+forward reads, ``data.visual_stream``), and drives the first three
+iterations through the same call the window makes, on batches whose clips
+all differ; those steps warm both step kinds, and the reference follows
+them after the window (the program's losses, its first gradient as the
+optimizer got it, and the parameters' change over the three).  Two more
+steps finish the warm-up.
 The window then runs steps until ``--seconds`` have passed, each step's
 loss read back as ``main.py`` reads it.  Each batch is gathered on the card
 from the staged pool, as the command line's prefetcher would have staged
@@ -138,7 +141,9 @@ class Program:
         pdist.broadcast_state(self.state)
         self.pool = data.make_pool(
             int(traffic["pool_clips"]), cfg.audLen, cfg.audRate, cfg.imgSize,
-            gen.manual_seed(harness.sub_seed(seed, 1)), dev)
+            gen.manual_seed(harness.sub_seed(seed, 1)), dev,
+            clip_len=cfg.clip_len if cfg.load_clips else 0)
+        self.stream = data.visual_stream(self.config["flags"])
         self.idx_gen = torch.Generator(device=dev).manual_seed(
             harness.sub_seed(seed, 2))
         self.swap_gen = torch.Generator().manual_seed(
@@ -156,7 +161,8 @@ class Program:
         import torch
         v = self.use_vis_fn(self.i)
         with torch.profiler.record_function("bench.batch"):
-            batch = data.train_batch(self.pool, idx[self.rows], v)
+            batch = data.train_batch(self.pool, idx[self.rows], v,
+                                     self.stream)
         err = float(self.call(self.i, batch)["err"])
         self.i += 1
         return v, err
@@ -164,8 +170,8 @@ class Program:
     def checked_steps(self) -> None:
         """The first :data:`CHECKED` steps, on batches whose clips all
         differ: their losses, the first gradient as the optimizer got it
-        (its momentum after one step, less the weight decay), and each
-        parameter's change over them."""
+        (its momentum after one step, less the weight decay, in the groups
+        that step advances), and each parameter's change over them."""
         from avsep_tpu_torch import train
         from benchmark.reference import train as rtrain
         self.checked = data.distinct_indices(
@@ -180,9 +186,13 @@ class Program:
             self.swaps.append(None if v else self.swap_gen.get_state())
             self.losses.append(self.step(idx)[1])
             if c == 0:
+                # an AV step under CoLoc_ClipAtt leaves group frame as
+                # it was
+                frozen = rtrain.frozen_nets(self.config["flags"], v)
                 moms = {k: b.detach().clone()
                         for g in self.state.opt_state.values()
-                        if g is not None for k, b in g.momentum.items()}
+                        if g is not None for k, b in g.momentum.items()
+                        if rtrain.group_of(k) not in frozen}
                 self.first = {k: moms[k] - self.cfg.weight_decay * p0[k]
                               for k in moms}
         self.change = {k: p.detach() - p0[k] for k, p in
@@ -206,7 +216,7 @@ class Program:
         from benchmark.reference import train as rtrain
         from benchmark.reference.nets import Precision, tf32
         rows = rows or self.Bg
-        batches = [data.train_batch(self.pool, idx[:rows], v)
+        batches = [data.train_batch(self.pool, idx[:rows], v, self.stream)
                    for idx, v in zip(self.checked, self.kinds)]
         uniforms = []
         for s in self.swaps:

@@ -1,7 +1,10 @@
 """Plain reference of ``music_hidsep``: the U-Net7 mask decoder with the
 co-localization fusion (``hidsep``, scaled-dot sigmoid attention) against
 dilated ResNet18 maps, trained jointly on audio-visual and audio-only
-batches, and its separation of a mixture into two wavs.
+batches, and its separation of a mixture into two wavs.  Under
+``fusion_type CoLoc_ClipAtt`` the same fusion attends over the SlowFast
+fast pathway's maps of each source's video clip instead
+(``nets.motion_map``), and the frame net does not run.
 
 * the AV step (reference ``main.py``, ``NetWrapper.forward``): the U-Net
   runs twice, once with the visual maps in reverse order against the
@@ -90,8 +93,12 @@ def train_loss(w: W, batch: Dict, use_vis: bool, flags: Dict,
         preds = torch.sigmoid(out.float())                  # [B, N, H, W]
         loss, _ = nets.pit(preds, gt, weights)
         return loss.mean()
-    feats = [nets.frame_map(batch["frames"][:, n], w, P, True)
-             for n in range(N)]
+    if flags["fusion_type"] == "CoLoc_ClipAtt":     # the motion net
+        feats = [nets.motion_map(batch["clips"][:, n], w, P, True)
+                 for n in range(N)]
+    else:
+        feats = [nets.frame_map(batch["frames"][:, n], w, P, True)
+                 for n in range(N)]
 
     def one_pass(vis, target):
         v = torch.stack(vis)

@@ -2,11 +2,13 @@
 
 Written from the model's description (the audio-visual separation
 codebase's ``models/audio_net.py``, ``vision_net.py``, ``fusion_net.py``,
-``criterion.py``, ``synthesizer_net.py`` and SoP++'s ``attention_net.py``,
-``main.py``), functionally: every layer takes its weights from one dict
-keyed by the published module names (``sound.down3.conv.weight``), the
-dict the benchmark made from the seed.  It imports nothing of the program
-and of the JAX package, and takes nothing the program made.
+``criterion.py``, ``synthesizer_net.py``, SoP++'s ``attention_net.py``,
+``main.py``, and for the motion net the SlowFast paper's fast pathway as
+mmaction2 builds it), functionally: every layer takes its weights from
+one dict keyed by the published module names (``sound.down3.conv.weight``,
+``motion.layer2_0.downsample_conv.weight``), the dict the benchmark made
+from the seed.  It imports nothing of the program and of the JAX package,
+and takes nothing the program made.
 
 Precision (:class:`Precision`): ``float32`` runs every layer in float32;
 ``bfloat16`` casts each convolution's input, weight and bias to bfloat16
@@ -66,15 +68,18 @@ def _fp8(x: torch.Tensor) -> torch.Tensor:
 
 def conv(x, w: W, name: str, P: Precision, stride=1, padding=0,
          dilation=1) -> torch.Tensor:
+    """A 2-D convolution, or a 3-D one where the weight is 5-D."""
     weight, bias = w[name + ".weight"], w.get(name + ".bias")
+    op = F.conv3d if weight.dim() == 5 else F.conv2d
     if P.compute == "float32":
-        return F.conv2d(x, weight, bias, stride, padding, dilation)
+        return op(x, weight, bias, stride, padding, dilation)
     d = P.dtype
     x, weight = x.to(d), weight.to(d)
     if P.compute == "fp8":
         x, weight = _fp8(x), _fp8(weight)
-    y = F.conv2d(x, weight, None, stride, padding, dilation)
-    return y if bias is None else y + bias.to(d)[:, None, None]
+    y = op(x, weight, None, stride, padding, dilation)
+    return y if bias is None else \
+        y + bias.to(d).view([-1] + [1] * (weight.dim() - 2))
 
 
 def batch_norm(x, w: W, name: str, P: Precision, train: bool,
@@ -206,6 +211,68 @@ def frame_map(frames, w: W, P: Precision, train: bool,
     y = resnet18_dilated(x, w, P, train, pre)
     y = y.reshape((B, T) + y.shape[1:]).mean(dim=1)
     return torch.relu(y)
+
+
+# -------------------------------------------------------- the motion net
+
+
+def _bottleneck3d(h, w: W, name: str, P, train, stride):
+    y = conv(h, w, name + ".conv1", P, padding=(1, 0, 0))
+    y = torch.relu(batch_norm(y, w, name + ".bn1", P, train))
+    y = conv(y, w, name + ".conv2", P, stride=(1, stride, stride),
+             padding=(0, 1, 1))
+    y = torch.relu(batch_norm(y, w, name + ".bn2", P, train))
+    y = batch_norm(conv(y, w, name + ".conv3", P), w, name + ".bn3", P,
+                   train)
+    if name + ".downsample_conv.weight" in w:
+        h = batch_norm(conv(h, w, name + ".downsample_conv", P,
+                            stride=(1, stride, stride)), w,
+                       name + ".downsample_bn", P, train)
+    return torch.relu(y + h)
+
+
+def resnet3d_fast(x, w: W, P: Precision, train: bool,
+                  blocks=(3, 4, 6, 3), pre: str = "motion.") -> torch.Tensor:
+    """The SlowFast fast pathway (Feichtenhofer et al., ICCV 2019; mmaction2's
+    ``ResNet3dSlowFast`` ``fast_pathway``: depth 50, ``base_channels`` 8,
+    ``conv1_kernel`` (5, 7, 7), ``conv1_stride_t`` 1, ``pool1_stride_t``
+    1, ``inflate_style`` '3x1x1', no lateral connections): normalized
+    clips ``[B, T, H, W, 3]`` -> the map ``[B, T, H/32, W/32, 256]``.
+
+    The stem: a 5x7x7 convolution at stride (1, 2, 2), BatchNorm, ReLU, a
+    (1, 3, 3) max-pool at stride (1, 2, 2) padded with -inf.  Each
+    bottleneck: a 3x1x1 ``conv1`` (every block inflated), a 1x3x3
+    ``conv2`` carrying the stage's spatial stride (2 in the first block
+    of stages 2 to 4), a 1x1x1 ``conv3`` to 4 x planes, a BatchNorm after
+    each and ReLU after the first two, the shortcut a strided 1x1x1
+    ``downsample_conv`` with its BatchNorm where the shape changes, ReLU
+    after the sum.  Departures from mmaction2's layer: no ``pool2`` (the
+    SlowFast forward runs the stages without it, as here); the map comes
+    back channels last, as the fusion reads it; weights are what the
+    caller hands in (mmaction2 zero-initializes each ``bn3`` scale, the
+    benchmark draws every weight from its seed); the running variance
+    moves by the biased batch variance, as for every net here (PyTorch's
+    BatchNorm uses the unbiased one; a training step does not read it).
+    Keys name the blocks ``layer2_0`` where mmaction2 writes
+    ``layer2.0``."""
+    h = conv(x.permute(0, 4, 1, 2, 3), w, pre + "conv1", P,
+             stride=(1, 2, 2), padding=(2, 3, 3))
+    h = torch.relu(batch_norm(h, w, pre + "bn1", P, train))
+    h = F.max_pool3d(F.pad(h, (1, 1, 1, 1), value=-math.inf), (1, 3, 3),
+                     stride=(1, 2, 2))
+    for stage, n in enumerate(blocks):
+        for b in range(n):
+            h = _bottleneck3d(h, w, f"{pre}layer{stage + 1}_{b}", P, train,
+                              2 if stage > 0 and b == 0 else 1)
+    return h.permute(0, 2, 3, 4, 1)
+
+
+def motion_map(clips, w: W, P: Precision, train: bool,
+               pre: str = "motion.") -> torch.Tensor:
+    """One stream's clips ``[B, T, H, W, 3]`` -> ReLU of the temporal mean
+    of the fast pathway's map ``[B, h, w, 256]``."""
+    y = resnet3d_fast(normalize_frames(clips), w, P, train, pre=pre)
+    return torch.relu(y.mean(dim=1))
 
 
 # ------------------------------------------------- the STFT and the warp

@@ -3,18 +3,23 @@ and SGD with momentum and weight decay in the published groups.
 
 Groups (reference ``create_optimizer``): ``sound`` (the sound net and the
 frame net's ``fc``) at ``lr_sound``, ``frame`` (the frame net's trunk) at
-``lr_frame``, ``synth`` (the synthesizer) at ``lr_synthesizer``.  A step
-moves the groups of the nets its forward runs: an audio-only step leaves
-the frame net where it is, and its ``frame`` group's state as it was;
+``lr_frame``, ``motion`` (the motion net, under ``load_clips``) at
+``lr_motion``, ``synth`` (the synthesizer) at ``lr_synthesizer``.  A step
+moves the groups of the nets its forward runs and freezes the others
+(:func:`frozen_nets`): an audio-only step leaves the frame and motion
+nets where they are, an audio-visual step the motion net, or under
+``fusion_type CoLoc_ClipAtt``, which runs the motion net in its place,
+the frame net; a frozen net's groups keep their state as it was.
 ``frame.fc``'s momentum, in group ``sound``, still decays and takes its
-weight decay.  Per group: ``u = g + wd p``, ``buf = beta1 buf + u``,
-``p -= lr buf``, with ``lr = base * 0.1 ** #{s in lr_steps: count >= s}``.
+weight decay while its net is frozen.  Per group: ``u = g + wd p``,
+``buf = beta1 buf + u``, ``p -= lr buf``, with ``lr = base * 0.1 **
+#{s in lr_steps: count >= s}``.
 """
 
 from __future__ import annotations
 
 import importlib
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -28,7 +33,18 @@ def group_of(name: str) -> str:
         return "sound"
     if name.startswith("synthesizer."):
         return "synth"
+    if name.startswith("motion."):
+        return "motion"
     return "frame"
+
+
+def frozen_nets(flags: Dict, use_vis: bool) -> Tuple[str, ...]:
+    """The nets, and the groups of the same names, that a step leaves
+    where they are: those its forward does not run."""
+    if not use_vis:
+        return ("frame", "motion")
+    return ("frame",) if flags["fusion_type"] == "CoLoc_ClipAtt" \
+        else ("motion",)
 
 
 def is_param(name: str) -> bool:
@@ -62,9 +78,8 @@ class Trainer:
              uniforms: Optional[torch.Tensor] = None, stage: int = 3):
         """One step in place; returns ``(loss, {param: gradient})``."""
         f = self.flags
-        frozen = () if use_vis else ("frame",)
-        live = [k for k in self.params
-                if group_of(k) not in frozen]
+        frozen = frozen_nets(f, use_vis)
+        live = [k for k in self.params if group_of(k) not in frozen]
         w = dict(self.w)
         for k in live:
             w[k] = self.w[k].detach().requires_grad_(True)
@@ -78,9 +93,9 @@ class Trainer:
             for k in self.w:               # running statistics moved in w
                 if not is_param(k):
                     self.w[k] = w[k]
-            lrs = {g: lr_at({"sound": f["lr_sound"], "frame": f["lr_frame"],
-                             "synth": f["lr_synthesizer"]}[g],
-                            f["lr_steps"], self.count[g])
+            base = {"sound": "lr_sound", "frame": "lr_frame",
+                    "motion": "lr_motion", "synth": "lr_synthesizer"}
+            lrs = {g: lr_at(f[base[g]], f["lr_steps"], self.count[g])
                    for g in self.count}
             for k in live:
                 u = self.w[k] * f["weight_decay"] + grads[k]

@@ -27,7 +27,8 @@ def _setup(cell_name):
     init = weights.make(dict(train.modules(nets)),
                         torch.Generator().manual_seed(1), "cpu")
     pool = data.make_pool(8, cfg.audLen, cfg.audRate, cfg.imgSize,
-                          torch.Generator().manual_seed(2), "cpu")
+                          torch.Generator().manual_seed(2), "cpu",
+                          clip_len=cfg.clip_len if cfg.load_clips else 0)
     idx = data.source_indices(8, B, 2, torch.Generator().manual_seed(3),
                               "cpu")
     return cell, init, pool, idx
@@ -35,11 +36,13 @@ def _setup(cell_name):
 
 @pytest.mark.parametrize("cell_name,use_vis", [
     ("music.train", True), ("music.train", False),
-    ("sop.train", True), ("sop.train", False)])
+    ("sop.train", True), ("sop.train", False),
+    ("clipatt.train", True), ("clipatt.train", False)])
 def test_train_step_flops_equal_the_counter(cell_name, use_vis):
     cell, init, pool, idx = _setup(cell_name)
     t = rtrain.Trainer(cell.config, init, Precision("float32"))
-    batch = data.train_batch(pool, idx, use_vis)
+    batch = data.train_batch(pool, idx, use_vis,
+                             data.visual_stream(cell.config["flags"]))
     with FlopCounterMode(display=False) as fc:
         t.step(batch, use_vis, torch.tensor([0.2, 0.7]), 3)
     want = kflops.train_step(cell.config["flags"], B, use_vis,
@@ -58,6 +61,25 @@ def test_separate_flops_equal_the_counter(use_vis):
         music_hidsep.separate(init, mix, frames, torch.tensor([0.2, 0.7]),
                               flags, Precision("float32"))
     assert fc.get_total_flops() == kflops.separate(flags, B, use_vis)
+
+
+def test_train_flops_at_published_widths_by_hand():
+    # the fast pathway on one 32 x 224 x 224 clip: 5.2825 GMAC forward
+    fast = kflops.resnet3d_fast(1, 32, 224, 224)
+    assert kflops.forward(fast) / 2 == pytest.approx(5.2825e9, rel=1e-4)
+    # an AV step of 16 rows x 2 sources trains it on 32 clips
+    assert kflops.trained(kflops.resnet3d_fast(32, 32, 224, 224)) \
+        == pytest.approx(0.86319e12, rel=1e-4)
+    flags = tiny.full("music.train").config["flags"]
+    assert kflops.per_kind(flags, 16, "avsep") == {
+        True: 2726874316800, False: 1052535422976}
+    clips = {**flags, "fusion_type": "CoLoc_ClipAtt", "load_clips": True,
+             "clip_len": 32}
+    assert kflops.per_kind(clips, 16, "avsep") == {
+        True: 2 * 1052535422976 + 863187763200, False: 1052535422976}
+    assert kflops.per_kind(tiny.full("sop.train").config["flags"], 16,
+                           "sop") == {True: 2046745903104,
+                                      False: 1266948243456}
 
 
 def test_kernel_bytes_by_hand():

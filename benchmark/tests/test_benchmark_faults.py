@@ -6,8 +6,9 @@ import argparse
 import time
 
 import pytest
+import torch
 
-from benchmark import run
+from benchmark import data, run
 from benchmark.tests import tiny
 
 
@@ -19,7 +20,10 @@ def _run(cell, capsys, seconds=1.0, trace=0):
     return run.json.loads(line)
 
 
-@pytest.mark.parametrize("name", ["music.train", "sop.train"])
+TRAIN = ["music.train", "sop.train", "clipatt.train"]
+
+
+@pytest.mark.parametrize("name", TRAIN)
 def test_a_sound_run_is_correct(name, capsys):
     assert _run(tiny.cell(name), capsys)["correct"] is True
 
@@ -35,7 +39,7 @@ def test_a_traced_run_reports_its_per_layer_metrics(name, capsys):
     assert "breakdown" in line and line["device"]["window_s"] > 0
 
 
-@pytest.mark.parametrize("name", ["music.train", "sop.train"])
+@pytest.mark.parametrize("name", TRAIN)
 def test_a_step_that_leaves_the_state_unchanged(name, monkeypatch, capsys):
     from avsep_tpu_torch import train
 
@@ -45,7 +49,7 @@ def test_a_step_that_leaves_the_state_unchanged(name, monkeypatch, capsys):
     assert _run(tiny.cell(name), capsys)["correct"] is False
 
 
-@pytest.mark.parametrize("name", ["music.train", "sop.train"])
+@pytest.mark.parametrize("name", TRAIN)
 def test_half_of_the_batch_left_out(name, monkeypatch, capsys):
     from avsep_tpu_torch import engine, sop_engine
 
@@ -58,6 +62,24 @@ def test_half_of_the_batch_left_out(name, monkeypatch, capsys):
     monkeypatch.setattr(sop_engine, "sop_forward",
                         halved(sop_engine.sop_forward))
     assert _run(tiny.cell(name), capsys)["correct"] is False
+
+
+def test_clips_leave_the_pool_as_it_was_and_move(monkeypatch):
+    def pool(clip_len):
+        return data.make_pool(6, 8191, 11025, 64,
+                              torch.Generator().manual_seed(2 ** 33 + 3),
+                              "cpu", clip_len=clip_len)
+    plain, with_clips = pool(0), pool(4)
+    assert set(plain) == {"audio", "frames"}
+    for k in plain:
+        assert torch.equal(plain[k], with_clips[k])
+    clips = with_clips["clips"]
+    assert clips.shape == (6, 4, 64, 64, 3) and clips.dtype == torch.uint8
+    # consecutive frames of every clip differ
+    assert (clips[:, 1:] != clips[:, :-1]).flatten(2).any(2).all()
+    # rendered a clip at a time, the clips are the same
+    monkeypatch.setattr(data, "CLIP_CHUNK_ELEMS", 1)
+    assert torch.equal(pool(4)["clips"], clips)
 
 
 def rank_without_exchange(payload, cfg, device):

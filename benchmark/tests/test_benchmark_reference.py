@@ -8,24 +8,93 @@ import torch
 from benchmark import checks, data, weights
 from benchmark.drivers.train import Program
 from benchmark.drivers.serve import _port_cfg, serve_flags
-from benchmark.reference import music_hidsep
+from benchmark.reference import music_hidsep, nets
 from benchmark.reference.nets import Precision
 from benchmark.tests import tiny
 
 
-@pytest.mark.parametrize("cell_name", ["music.train", "sop.train"])
+# leaves that moved by a few roundings of their values are left out of
+# the change's gaps
+LIMITS = {"loss_gap": 1e-4, "grad_gap": 1e-3, "grad_gap.median": 1e-4,
+          "change_gap": 0.02, "change_gap.median": 1e-3}
+# cells whose first gradients float32 rounding alone moves by more than
+# LIMITS: the fast pathway's BatchNorm leaves at this size move by up to 3 %
+# when the starting weights move by one rounding
+ROUNDING_BOUND = {"clipatt.train"}
+
+
+def rounding_spread(prog, ref, draws: int = 3):
+    """Each number of the reference against itself with every starting
+    weight moved by one float32 rounding, the largest of ``draws``
+    draws: how far rounding alone moves it."""
+    from benchmark.reference import train as rtrain
+    init, out = prog.init, {}
+    try:
+        for d in range(draws):
+            g = torch.Generator().manual_seed(d)
+            prog.init = {k: v * (1 + 2.0 ** -24 * torch.randn(
+                v.shape, generator=g)) if rtrain.is_param(k) else v
+                for k, v in init.items()}
+            side = prog.reference("float32")
+            prog.init = init
+            for k, v in prog.numbers(ref, side=side).items():
+                out[k] = max(out.get(k, 0.0), v)
+    finally:
+        prog.init = init
+    return out
+
+
+@pytest.mark.parametrize("cell_name",
+                         ["music.train", "sop.train", "clipatt.train"])
 def test_train_steps_agree(cell_name):
     prog = Program(tiny.cell(cell_name), 2 ** 33 + 5, "cpu")
     prog.checked_steps()
     assert prog.kinds == [True, False, True]
     ref = prog.reference("float32")
     got = prog.numbers(ref)
-    assert got["loss_gap"] < 1e-4
-    assert got["grad_gap"] < 1e-3
-    assert got["grad_gap.median"] < 1e-4
-    # leaves that moved by a few roundings of their values are left out
-    assert got["change_gap"] < 0.02
-    assert got["change_gap.median"] < 1e-3
+    limits = dict(LIMITS)
+    if cell_name in ROUNDING_BOUND:
+        own = rounding_spread(prog, ref)
+        limits = {k: max(v, 3 * own[k]) for k, v in LIMITS.items()}
+    for k, v in limits.items():
+        assert got[k] < v, (k, got[k], v)
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_the_fast_pathway_agrees_with_the_port(train):
+    from avsep_tpu_torch.models.motion import ResNet3dFastOnly
+    net = ResNet3dFastOnly().train(train)
+    init = weights.make({"motion": net}, torch.Generator().manual_seed(7),
+                        "cpu")
+    if not train:                  # running statistics away from 0 and 1
+        g = torch.Generator().manual_seed(8)
+        for k in init:
+            if k.endswith("running_mean"):
+                init[k] = 0.1 * torch.randn(init[k].shape, generator=g)
+            elif k.endswith("running_var"):
+                init[k] = 0.5 + torch.rand(init[k].shape, generator=g)
+    weights.load({"motion": net}, init)
+    x = torch.randn(2, 4, 64, 64, 3, generator=torch.Generator()
+                    .manual_seed(9))
+    with torch.no_grad():
+        got = net(x)
+    want = nets.resnet3d_fast(x, dict(init), Precision("float32"), train)
+    assert got.shape == want.shape == (2, 4, 2, 2, 256)
+    limit = 1e-5
+    if train:
+        # with batch statistics the net moves its output by about 3e-5
+        # when its input moves by one float32 rounding
+        moved = x * (1 + 2.0 ** -24 * torch.randn(
+            x.shape, generator=torch.Generator().manual_seed(10)))
+        w = {k: v.clone() for k, v in init.items()}
+        own = nets.resnet3d_fast(moved, w, Precision("float32"), True)
+        limit = max(limit, 3 * float((own - want).norm() / want.norm()))
+    assert float((got - want).norm() / want.norm()) < limit
+    if train:                      # the running statistics moved alike
+        sd = net.state_dict()
+        for k in ("layer4_2.bn3.running_mean", "bn1.running_var"):
+            assert torch.allclose(sd[k], init["motion." + k], rtol=1e-5,
+                                  atol=1e-6)
 
 
 def test_a_change_within_rounding_is_left_out():
