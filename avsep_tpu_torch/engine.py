@@ -65,6 +65,7 @@ from avsep_tpu_torch.ops.prepare import PreparedBatch, prepare
 from avsep_tpu_torch.ops.stft import istft, stft_magphase
 from avsep_tpu_torch.ops.warp import unwarp_mask
 from avsep_tpu_torch.parallel import distributed as pdist
+from avsep_tpu_torch.utils import spans
 
 # cfg.dtype -> the nets' compute dtype
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -225,11 +226,27 @@ def _motion_features(nets: Nets, clips_n: torch.Tensor, cfg: Config,
                      remat: bool = False) -> torch.Tensor:
     """One source's clip ``[B, T, H, W, 3]`` -> the activated motion map
     ``[B, h, w, C]``: the motion net, then the mean over time (the JAX
-    package's live motion branch, ``avsep_tpu/engine.py:178-202``)."""
+    package's live motion branch, ``avsep_tpu/engine.py:178-202``).  The
+    net, the mean and the activation are the span ``train.motion``
+    (``clips`` the rows, ``frames`` ``clip_len``), which counts its rows
+    under ``motion.clips`` (``utils/spans.py``)."""
     clips_n = normalize_frames(clips_n)
-    feats = _call(nets.motion, remat, clips_n)
-    return activate(torch.mean(feats, dim=1), cfg.img_activation,
-                    upcast=False)
+    with spans.span("train.motion", clips=clips_n.shape[0],
+                    frames=cfg.clip_len):
+        spans.count("motion.clips", clips_n.shape[0])
+        feats = _call(nets.motion, remat, clips_n)
+        return activate(torch.mean(feats, dim=1), cfg.img_activation,
+                        upcast=False)
+
+
+def motion_clips(cfg: Config, use_vis: bool, batch) -> int:
+    """The clips a step's forward runs through the motion net: each row's
+    clip of each source in an AV step under ``fusion_type
+    CoLoc_ClipAtt`` (:func:`forward_av`), none otherwise.  It is what the
+    step counts under ``motion.clips``."""
+    if not (use_vis and cfg.fusion_type == "CoLoc_ClipAtt"):
+        return 0
+    return batch["clips"].shape[0] * cfg.num_mix
 
 
 def _sound_forward(nets: Nets, log_mag: torch.Tensor,

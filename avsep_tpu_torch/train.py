@@ -349,7 +349,8 @@ def _addresses(state: TrainState, mods: List[torch.nn.Module]) -> tuple:
 class _Graph:
     """One captured step: its key, the graph, its static inputs (the batch
     and, for an AO step, the slot swap's uniforms), its static metrics, the
-    groups it advances and the kernel launches it holds."""
+    groups it advances, the kernel launches it holds and what it counts
+    in the span recorder (``motion.clips``)."""
     key: tuple
     graph: "torch.cuda.CUDAGraph"
     batch: Dict[str, torch.Tensor]
@@ -357,6 +358,7 @@ class _Graph:
     metrics: Dict[str, torch.Tensor]
     groups: List[str]
     launches: Dict[str, int]
+    counts: Dict[str, int]
 
 
 class GraphedStep:
@@ -386,8 +388,11 @@ class GraphedStep:
     nets are put back in train mode.  ``metrics`` are fresh copies of the
     graph's static outputs.  A step is the span ``train.step`` with the
     counter ``train.graph_capture`` or ``train.graph_replay``; the inner
-    spans are recorded at the capture only.  The graphs and their pools
-    are this object's: dropping it frees them."""
+    spans are recorded at the capture only, and a replay counts again
+    inside its ``train.step`` the clips the captured step ran through the
+    motion net (``motion.clips``, :func:`engine.motion_clips` of its
+    static batch: the recorder may be off at the capture).  The graphs
+    and their pools are this object's: dropping it frees them."""
 
     def __init__(self, cfg: Config, use_vis: bool, eager: Callable,
                  device: torch.device):
@@ -466,10 +471,12 @@ class GraphedStep:
                 state.step = step0
                 raise
             graph.replay()
+        clips = engine.motion_clips(self.cfg, self.use_vis, static)
         self.graph = _Graph(
             key, graph, static, static_u, metrics, groups,
             {k: getattr(kernels, k).launches - launches0[k]
-             for k in LAUNCHED})
+             for k in LAUNCHED},
+            {"motion.clips": clips} if clips else {})
         return state, {k: v.clone() for k, v in metrics.items()}
 
     def _replay(self, state: TrainState, batch, swap_uniforms,
@@ -488,6 +495,8 @@ class GraphedStep:
             state.step += 1
             for k, n in gr.launches.items():
                 getattr(kernels, k).launches += n
+            for k, n in gr.counts.items():
+                spans.count(k, n)
             for _, net in modules(state.nets):
                 if not net.training:
                     net.train(True)

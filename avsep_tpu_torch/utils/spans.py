@@ -27,6 +27,24 @@ On (:func:`enable` / :func:`disable`, or ``with recording():``):
   (``.item()``, ``.cpu()``, a host tensor's blocking ``.to(device)``,
   ``torch.tensor(..., device=)``), not ``torch.cuda.synchronize()``.
 
+The train step's names, which the benchmark's readers key on:
+
+=====================  ==================================================
+``train.step``         a step (``kind`` ``av`` / ``ao``); counters
+                       ``train.graph_capture``, ``train.graph_replay``
+``train.forward``      the forward, inside ``train.step``
+``train.motion``       the motion net, its mean over time and activation,
+                       once per source inside ``train.forward`` (``clips``
+                       the rows, ``frames`` ``clip_len``)
+``motion.clips``       counter: the clips through the motion net (also
+                       counted by a replayed step)
+``train.backward``,    the rest of the step, inside ``train.step``
+``train.grad_mean``,
+``train.update``,
+``train.metrics``
+``sync``               counter: synchronizing CUDA calls
+=====================  ==================================================
+
 Records stay in memory in per-thread lists until :func:`drain` hands them
 out; nothing is written to disk.  :func:`summary` gives each name's count,
 total and self seconds (self: the duration less what its child spans

@@ -14,6 +14,7 @@ import torch
 
 from avsep_tpu_torch import engine, sop_main, train
 from avsep_tpu_torch.config import Config
+from avsep_tpu_torch.models.motion import ResNet3dFastOnly
 from avsep_tpu_torch.models.resnet import TinyConvEncoder
 from avsep_tpu_torch.models.unet import AudioUnet
 from avsep_tpu_torch.serve import (
@@ -29,6 +30,9 @@ SMALL = dict(arch_sound="unet5", arch_frame="tinyconv", num_channels=2,
 SOP = dict(SMALL, arch_synthesizer="linear", num_channels=8, vis_channels=8,
            fusion_type="Base", att_type="cos", sound_activation="no",
            lr_synthesizer=1e-2, audLen=8191)
+# the motion net on 4-frame 32x32 clips at base 1, one block per stage
+CLIPS = dict(SMALL, fusion_type="CoLoc_ClipAtt", load_clips=True,
+             clip_len=4, imgSize=32, lr_motion=1e-2)
 STEP_KIDS = ("train.forward", "train.backward", "train.grad_mean",
              "train.update", "train.metrics")
 WAIT = 120  # seconds: the bound on every future, socket and join
@@ -78,8 +82,26 @@ def sop_step(use_vis):
     return lambda: step(state, batch(cfg))
 
 
+def clips_step(use_vis):
+    cfg = Config(**CLIPS)
+    torch.manual_seed(0)
+    nets = engine.Nets(
+        AudioUnet(fc_dim=2, num_downs=5, ngf=8, fusion_type=cfg.fusion_type,
+                  att_type=cfg.att_type), TinyConvEncoder(32, "maxpool"),
+        ResNet3dFastOnly(base_channels=1, stage_blocks=(1, 1, 1, 1)))
+    state = train.TrainState(0, nets, train.init_opt_state(cfg, nets))
+    step = train.make_train_step(cfg, nets, use_vis, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    b = {"audios": batch(cfg)["audios"],
+         "clips": torch.from_numpy(np.random.RandomState(2).randint(
+             0, 256, (2, 2, 4, 32, 32, 3)).astype(np.uint8))}
+    return lambda: step(state, b, generator=gen)
+
+
 STEPS = {"av": lambda: avsep_step(True), "ao": lambda: avsep_step(False),
-         "sop_av": lambda: sop_step(True), "sop_ao": lambda: sop_step(False)}
+         "sop_av": lambda: sop_step(True), "sop_ao": lambda: sop_step(False),
+         "clips_av": lambda: clips_step(True),
+         "clips_ao": lambda: clips_step(False)}
 
 
 def profiled_names(fn):
@@ -99,7 +121,8 @@ def test_off_the_step_keeps_nothing_and_enters_no_record_function(which):
     assert rec.records == [] and rec.loose == {}
 
 
-@pytest.mark.parametrize("which", ["av", "ao", "sop_av", "sop_ao"])
+@pytest.mark.parametrize("which", ["av", "ao", "sop_av", "sop_ao",
+                                   "clips_av", "clips_ao"])
 def test_on_a_step_records_the_names_the_readers_key_on(which):
     step = STEPS[which]()
     step()                             # the first call builds caches
@@ -107,21 +130,38 @@ def test_on_a_step_records_the_names_the_readers_key_on(which):
     with spans.recording():
         spans.correlate(41)
         names = profiled_names(step)
-    recs = spans.drain().records
+    every = spans.drain().records
+    # the motion net's spans (an AV step on clips: one per source, inside
+    # the forward); the step's own phases are the same in every kind
+    motion = [r for r in every if r.name == "train.motion"]
+    recs = [r for r in every if r.name != "train.motion"]
     assert sorted(r.name for r in recs) == sorted(("train.step",)
                                                   + STEP_KIDS)
     top = [r for r in recs if r.name == "train.step"]
     assert len(top) == 1 and top[0].parent is None
     assert top[0].attrs == {"kind": "ao" if which.endswith("ao") else "av"}
     assert all(r.parent == top[0].id for r in recs if r is not top[0])
-    assert {r.cid for r in recs} == {41}
-    assert {r.thread for r in recs} == {threading.get_ident()}
+    assert {r.cid for r in every} == {41}
+    assert {r.thread for r in every} == {threading.get_ident()}
     # the profiler shows the phases: each span entered record_function
     assert {"train.step", *STEP_KIDS} <= names
     kids = [r for r in recs if r is not top[0]]
     assert all(top[0].t0 <= r.t0 <= r.t1 <= top[0].t1 for r in kids)
     order = sorted(kids, key=lambda r: r.t0)
     assert [r.name for r in order] == list(STEP_KIDS)
+    counts = spans.summary(every)["train.step"]["counts"]
+    if which != "clips_av":
+        assert motion == [] and "train.motion" not in names
+        assert "motion.clips" not in counts
+        return
+    forward = next(r for r in recs if r.name == "train.forward")
+    assert len(motion) == 2 and "train.motion" in names
+    assert all(r.parent == forward.id and r.attrs == {"clips": 2,
+                                                      "frames": 4}
+               and forward.t0 <= r.t0 <= r.t1 <= forward.t1
+               for r in motion)
+    # rows x num_mix clips ran through the net
+    assert counts["motion.clips"] == 2 * 2
 
 
 def test_self_time_is_the_duration_less_the_children():
