@@ -48,7 +48,6 @@ fall back to the CPU.
 from __future__ import annotations
 
 import contextlib
-import functools
 from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -61,6 +60,9 @@ from avsep_tpu_torch.models import criterion as crit
 from avsep_tpu_torch.models.builder import ModelBuilder, activate
 from avsep_tpu_torch.models.fusion import swap_uniforms as draw_swap
 from avsep_tpu_torch.models.layers import running_stats_frozen
+# imagenet_normalize under engine's name too: serve and the benchmark call it
+from avsep_tpu_torch.ops.imagenet import (  # noqa: F401
+    imagenet_normalize, normalize_frames)
 from avsep_tpu_torch.ops.prepare import PreparedBatch, prepare
 from avsep_tpu_torch.ops.stft import istft, stft_magphase
 from avsep_tpu_torch.ops.warp import unwarp_mask
@@ -170,32 +172,6 @@ def init_params(cfg: Config, nets: Nets, generator: torch.Generator,
 
 # ------------------------------------------------------------------ helpers
 
-_IMAGENET_MEAN = (0.485, 0.456, 0.406)
-_IMAGENET_STD = (0.229, 0.224, 0.225)
-
-
-@functools.lru_cache(maxsize=None)
-def _imagenet_stats(device: torch.device):
-    """The ImageNet mean and std on ``device``, made once per device: a
-    copy from the host inside a step would stop a CUDA graph's capture."""
-    return (torch.tensor(_IMAGENET_MEAN, dtype=torch.float32, device=device),
-            torch.tensor(_IMAGENET_STD, dtype=torch.float32, device=device))
-
-
-def imagenet_normalize(x: torch.Tensor) -> torch.Tensor:
-    """(x - ImageNet mean) / std for float RGB in [0, 1], channels last."""
-    mean, std = _imagenet_stats(x.device)
-    return (x - mean) / std
-
-
-def normalize_frames(x: torch.Tensor) -> torch.Tensor:
-    """uint8 frames -> ImageNet-normalized float32, on their device; float
-    frames pass through unchanged."""
-    if x.dtype == torch.uint8:
-        return imagenet_normalize(x.float() * (1.0 / 255.0))
-    return x
-
-
 def _remat_contexts():
     """``torch.utils.checkpoint``'s ``context_fn``: nothing around the
     forward, the BatchNorm running statistics frozen around the
@@ -229,8 +205,11 @@ def _motion_features(nets: Nets, clips_n: torch.Tensor, cfg: Config,
     package's live motion branch, ``avsep_tpu/engine.py:178-202``).  The
     net, the mean and the activation are the span ``train.motion``
     (``clips`` the rows, ``frames`` ``clip_len``), which counts its rows
-    under ``motion.clips`` (``utils/spans.py``)."""
-    clips_n = normalize_frames(clips_n)
+    under ``motion.clips`` (``utils/spans.py``).  A net whose stem is the
+    kernel (``stem_kernel``) gets the clip as it comes and normalizes it
+    in the stem's load."""
+    if not nets.motion.stem_kernel:
+        clips_n = normalize_frames(clips_n)
     with spans.span("train.motion", clips=clips_n.shape[0],
                     frames=cfg.clip_len):
         spans.count("motion.clips", clips_n.shape[0])

@@ -12,6 +12,10 @@ channels feed the CoLoc attention of ``fusion_type CoLoc_ClipAtt``
 Clips come in as the JAX package's ``[B, T, H, W, 3]``; the module permutes
 them once to ``[B, 3, T, H, W]``, runs its convolutions NCDHW, and returns
 the JAX package's channels-last ``[B, T, H/32, W/32, 32 * base_channels]``.
+In bfloat16 at base 8 the stem is ``ops/kernels.motion_stem`` instead
+(:attr:`ResNet3dFastOnly.stem_kernel`), which reads the clips as they come,
+uint8 included, and normalizes them in its load; ``conv1`` keeps its
+weight, and the float32 net its ``nn.Conv3d``.
 Submodules carry the JAX package's names (``conv1``, ``bn1``,
 ``layer{i}_{j}.conv{1,2,3}``, ``bn{1,2,3}``, ``downsample_conv``,
 ``downsample_bn``), so a JAX parameter path is a ``state_dict`` key
@@ -28,6 +32,7 @@ import torch.nn as nn
 
 from avsep_tpu_torch.models.layers import (
     BatchNorm, Conv3d, he_normal_init_, reset_batchnorm_)
+from avsep_tpu_torch.ops import kernels
 
 
 def _bn(features: int, dtype: torch.dtype) -> BatchNorm:
@@ -108,11 +113,22 @@ class ResNet3dFastOnly(nn.Module):
             elif isinstance(m, BatchNorm):
                 reset_batchnorm_(m)
 
+    @property
+    def stem_kernel(self) -> bool:
+        """Whether the stem is ``kernels.motion_stem``: in bfloat16, at its
+        one shape (3 -> 8 channels).  Such a net takes uint8 clips as they
+        come; otherwise clips are normalized float32."""
+        return self.conv1.compute_dtype == torch.bfloat16 and \
+            tuple(self.conv1.weight.shape) == kernels.STEM_WEIGHT
+
     def forward(self, clips: torch.Tensor) -> torch.Tensor:
         """clips ``[B, T, H, W, 3]`` -> features ``[B, T, H/32, W/32, C]``
         (channels last, as the JAX package returns them)."""
-        y = clips.permute(0, 4, 1, 2, 3)
-        y = self.maxpool(torch.relu(self.bn1(self.conv1(y))))
+        if self.stem_kernel:
+            y = kernels.motion_stem(clips, self.conv1.weight)
+        else:
+            y = self.conv1(clips.permute(0, 4, 1, 2, 3))
+        y = self.maxpool(torch.relu(self.bn1(y)))
         for name in self.blocks:
             y = getattr(self, name)(y)
         return y.permute(0, 2, 3, 4, 1)

@@ -9,18 +9,26 @@ Port of ``avsep_tpu/ops/pallas_kernels.py``:
   windowed inverse-DFT frames ``[B, T, n_fft]`` -> overlap-added samples
   ``[B, out_len]`` divided by the summed squared window, optionally clipped
   to [-1, 1]; source ``csrc/overlap_add.cu``.
+* :func:`motion_stem` and :func:`motion_stem_wgrad` (no TPU kernel: the JAX
+  package leaves the convolution to XLA): the motion net's 5x7x7 stem in
+  bfloat16, uint8 clips normalized in its load, and its weight gradient;
+  source ``csrc/motion_stem.cu``.  They are the ops ``avsep::motion_stem``
+  and ``avsep::motion_stem_wgrad``, the first with the second as its
+  backward, so that a profiler links their kernels to a named op and to
+  the autograd backward function of its sequence number.
 
 Each wrapper checks its inputs and then dispatches on the tensor's device
 alone: a CPU tensor goes to the plain PyTorch version in this module, a CUDA
 tensor launches the kernel on the current stream or raises.  Each wrapper
 counts its kernel launches in a plain integer attribute
-(``frame_window.launches``, ``overlap_add_normalize.launches``) so that a run
-can show that the main path went through the kernels.
+(``frame_window.launches``, ``overlap_add_normalize.launches``,
+``motion_stem.launches``, ``motion_stem_wgrad.launches``) so that a run can
+show that the main path went through the kernels.
 
 The sources are compiled at first use by ``nvcc`` (for ``sm_90a``) into one
-shared library each, with a plain C interface, under ``build/avsep_tpu_torch/``
-beside the package, keyed by a hash of the source and the flags, and loaded
-with ``ctypes``.
+shared library per source, with a plain C interface, under
+``build/avsep_tpu_torch/`` beside the package, keyed by a hash of the source
+and the flags, and loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -35,7 +43,10 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from avsep_tpu_torch.ops.imagenet import (
+    IMAGENET_MEAN, IMAGENET_STD, UINT8_SCALE, normalize_frames)
 from avsep_tpu_torch.ops.stft import (
     _window_tensor, frame_signal, hann_periodic, overlap_add)
 
@@ -44,18 +55,28 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "avsep_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-# kernel name -> (source file, C function name)
+# kernel name -> (source file, C function name); one library per source
 SOURCES = {
     "frame_window": ("frame_window.cu", "avsep_frame_window"),
     "overlap_add_normalize": ("overlap_add.cu", "avsep_overlap_add_normalize"),
+    "motion_stem": ("motion_stem.cu", "avsep_motion_stem"),
+    "motion_stem_wgrad": ("motion_stem.cu", "avsep_motion_stem_wgrad"),
 }
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_I64, _F32 = ctypes.c_longlong, ctypes.c_float
+# the stem's clip arguments after its pointers: B, T, H, W, the clips' five
+# strides, the scale, three means and three stds
+_CLIP_DIMS = [_INT] * 4 + [_I64] * 5 + [_F32] * 7
 # kernel name -> the C function's argument types, in order: c_void_p for
 # every pointer and the stream (a shorter type would cut a pointer to 32
-# bits), c_int for every int
+# bits), c_int for every int, c_longlong for a long long, c_float for a
+# float
 ARGTYPES = {
     "frame_window": [_PTR] * 3 + [_INT] * 7 + [_PTR],
     "overlap_add_normalize": [_PTR] * 3 + [_INT] * 6 + [_PTR],
+    "motion_stem": [_PTR, _INT, _PTR, _PTR] + _CLIP_DIMS + [_PTR],
+    "motion_stem_wgrad": [_PTR, _INT, _PTR, _PTR, _PTR] + _CLIP_DIMS
+    + [_PTR],
 }
 # dynamic shared memory of one block: what a launch gets without opting in,
 # and the most an H100 block can opt in to
@@ -97,25 +118,26 @@ def build() -> Dict[str, str]:
     procs = {}
     try:
         for name, so in paths.items():
-            if os.path.exists(so):
+            if os.path.exists(so) or so in procs:
                 continue
             tmp = f"{so}.{os.getpid()}.tmp"
             src = os.path.join(CSRC_DIR, SOURCES[name][0])
-            procs[name] = (subprocess.Popen(
+            procs[so] = (subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-                tmp)
+                tmp, src)
         failed = []
-        for name, (proc, tmp) in procs.items():
+        for so, (proc, tmp, src) in procs.items():
             log, _ = proc.communicate()
             if proc.returncode:
-                failed.append(f"nvcc failed on {SOURCES[name][0]}:\n{log}")
+                failed.append(f"nvcc failed on {os.path.basename(src)}:\n"
+                              f"{log}")
             else:
-                os.replace(tmp, paths[name])
+                os.replace(tmp, so)
         if failed:
             raise RuntimeError("\n".join(failed))
     finally:
-        for proc, _ in procs.values():
+        for proc, *_ in procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
@@ -289,3 +311,170 @@ def overlap_add_normalize(frames: torch.Tensor, hop: int, out_len: int,
 
 
 overlap_add_normalize.launches = 0
+
+
+# ------------------------------------------------------------ motion stem
+
+# ResNet3dFastOnly.conv1 (models/motion.py): weight [8, 3, 5, 7, 7]
+STEM_WEIGHT = (8, 3, 5, 7, 7)
+STEM_STRIDE = (1, 2, 2)
+STEM_PADDING = (2, 3, 3)
+# a block's output tile in rows and columns (csrc/motion_stem.cu): the
+# weight gradient's scratch holds one column of 5880 sums per block
+_STEM_TILE = 16
+
+
+def _stem_input(clips: torch.Tensor) -> torch.Tensor:
+    """The stem's input as the net computed it before the kernel: the clips
+    normalized (``imagenet.normalize_frames``), permuted to ``[B, 3, T, H,
+    W]`` and cast to bfloat16 (``layers.Conv3d.forward``)."""
+    return normalize_frames(clips).permute(0, 4, 1, 2, 3).to(
+        torch.bfloat16)
+
+
+def motion_stem_plain(clips: torch.Tensor,
+                      weight: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`motion_stem`: the bfloat16
+    ``Conv3d`` on the normalized clips, as the net ran it before."""
+    return F.conv3d(_stem_input(clips), weight.to(torch.bfloat16), None,
+                    STEM_STRIDE, STEM_PADDING)
+
+
+def motion_stem_wgrad_plain(clips: torch.Tensor, grad: torch.Tensor,
+                            weight: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`motion_stem_wgrad`: the weight
+    gradient autograd takes through the bfloat16 ``Conv3d`` (the input
+    needs none) and the cast's backward to float32."""
+    _, gw, _ = torch.ops.aten.convolution_backward(
+        grad, _stem_input(clips), weight.to(torch.bfloat16), None,
+        STEM_STRIDE, STEM_PADDING, (1, 1, 1), False, (0, 0, 0), 1,
+        (False, True, False))
+    return gw.to(torch.float32)
+
+
+def _stem_shape(clips: torch.Tensor):
+    B, T, H, W, _ = clips.shape
+    return B, T, (H - 1) // 2 + 1, (W - 1) // 2 + 1
+
+
+def _stem_clip_args(clips: torch.Tensor):
+    """The C functions' clip arguments: pointer, uint8 flag, B, T, H, W, the
+    element strides, and the normalization as ``imagenet.normalize_frames``
+    holds it in float32."""
+    B, T, H, W, _ = clips.shape
+    scale = float(np.float32(UINT8_SCALE))
+    mean = [float(v) for v in np.float32(IMAGENET_MEAN)]
+    std = [float(v) for v in np.float32(IMAGENET_STD)]
+    return ([clips.data_ptr(), int(clips.dtype == torch.uint8)],
+            [B, T, H, W, *clips.stride(), scale, *mean, *std])
+
+
+def _motion_stem_cuda(clips: torch.Tensor,
+                      weight: torch.Tensor) -> torch.Tensor:
+    B, T, OH, OW = _stem_shape(clips)
+    out = torch.empty((B, T, OH, OW, STEM_WEIGHT[0]), dtype=torch.bfloat16,
+                      device=clips.device)
+    if out.numel():
+        head, dims = _stem_clip_args(clips)
+        _launch("motion_stem", clips.device, *head,
+                weight.contiguous().data_ptr(), out.data_ptr(), *dims)
+        motion_stem.launches += 1
+    return out.permute(0, 4, 1, 2, 3)
+
+
+def _motion_stem_wgrad_cuda(clips: torch.Tensor, grad: torch.Tensor,
+                            weight: torch.Tensor) -> torch.Tensor:
+    B, T, OH, OW = _stem_shape(clips)
+    g = grad.permute(0, 2, 3, 4, 1).to(torch.bfloat16).contiguous()
+    out = torch.empty(STEM_WEIGHT, dtype=torch.float32, device=clips.device)
+    blocks = B * -(-OH // _STEM_TILE) * -(-OW // _STEM_TILE)
+    if blocks == 0:
+        return out.zero_()
+    partial = torch.empty((out.numel(), blocks), dtype=torch.float32,
+                          device=clips.device)
+    head, dims = _stem_clip_args(clips)
+    _launch("motion_stem_wgrad", clips.device, *head, g.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), *dims)
+    motion_stem_wgrad.launches += 1
+    return out
+
+
+def _stem_setup(ctx, inputs, output) -> None:
+    ctx.save_for_backward(inputs[0], inputs[1])
+
+
+def _stem_backward(ctx, grad: torch.Tensor):
+    clips, weight = ctx.saved_tensors
+    if not ctx.needs_input_grad[1]:
+        return None, None
+    return None, torch.ops.avsep.motion_stem_wgrad(clips, grad, weight)
+
+
+# The two ops, each with the plain version on the CPU and the kernel on a
+# card, the second the first's backward.  Defined through a Library rather
+# than ``torch.library.custom_op``, whose first call imports torch._dynamo
+# (seconds of set-up) to wrap the implementation.
+_LIB = torch.library.Library("avsep", "DEF")
+_LIB.define("motion_stem(Tensor clips, Tensor weight) -> Tensor")
+_LIB.define("motion_stem_wgrad(Tensor clips, Tensor grad, Tensor weight) "
+            "-> Tensor")
+_LIB.impl("motion_stem", motion_stem_plain, "CPU")
+_LIB.impl("motion_stem", _motion_stem_cuda, "CUDA")
+_LIB.impl("motion_stem_wgrad", motion_stem_wgrad_plain, "CPU")
+_LIB.impl("motion_stem_wgrad", _motion_stem_wgrad_cuda, "CUDA")
+torch.library.register_autograd("avsep::motion_stem", _stem_backward,
+                                setup_context=_stem_setup, lib=_LIB)
+
+
+def _check_stem(clips: torch.Tensor, weight: torch.Tensor) -> None:
+    if not isinstance(clips, torch.Tensor) or \
+            clips.dtype not in (torch.uint8, torch.float32):
+        raise TypeError("clips must be a uint8 or float32 tensor, got "
+                        f"{getattr(clips, 'dtype', type(clips))}")
+    if clips.dim() != 5 or clips.shape[-1] != 3:
+        raise ValueError(f"clips must be [B, T, H, W, 3], got "
+                         f"{tuple(clips.shape)}")
+    if tuple(weight.shape) != STEM_WEIGHT or weight.dtype != torch.float32:
+        raise ValueError(f"weight must be float32 {STEM_WEIGHT}, got "
+                         f"{weight.dtype} {tuple(weight.shape)}")
+    if clips.device != weight.device or \
+            clips.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"clips ({clips.device}) and weight "
+                         f"({weight.device}) must lie on one CPU or CUDA "
+                         "device")
+    if clips.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError("motion_stem gives no gradient to its clips: "
+                           "they must not require grad")
+
+
+def motion_stem(clips: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The motion net's stem in bfloat16: clips ``[B, T, H, W, 3]`` (uint8,
+    normalized here as ``imagenet.normalize_frames`` does, or float32 already
+    normalized; any strides) and the float32 weight ``[8, 3, 5, 7, 7]`` ->
+    ``[B, 8, T, ceil(H / 2), ceil(W / 2)]`` bfloat16, a channels-last view.
+
+    The convolution at stride (1, 2, 2) and padding (2, 3, 3), input and
+    weight rounded to bfloat16, as ``layers.Conv3d`` at compute dtype
+    bfloat16 computes it.  CPU tensor: plain version.  CUDA tensor: the
+    kernels of ``csrc/motion_stem.cu``; the weight gradient is
+    :func:`motion_stem_wgrad`.  The clips get no gradient: clips that
+    require grad while grad mode is on raise, on every device."""
+    _check_stem(clips, weight)
+    return torch.ops.avsep.motion_stem(clips, weight)
+
+
+motion_stem.launches = 0
+
+
+def motion_stem_wgrad(clips: torch.Tensor, grad: torch.Tensor,
+                      weight: torch.Tensor) -> torch.Tensor:
+    """The float32 gradient of :func:`motion_stem`'s weight given the
+    output's gradient ``grad`` ``[B, 8, T, OH, OW]``: float32 sums over
+    every output position, rounded to bfloat16 and back (the cast's
+    backward).  On a card the sums are taken in a fixed order, so two calls
+    give the same bits.  CPU tensor: plain version."""
+    _check_stem(clips, weight)
+    return torch.ops.avsep.motion_stem_wgrad(clips, grad, weight)
+
+
+motion_stem_wgrad.launches = 0

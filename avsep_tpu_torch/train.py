@@ -54,7 +54,8 @@ from avsep_tpu_torch.parallel import distributed as pdist
 from avsep_tpu_torch.utils import spans
 
 # the port's kernels whose launch counters a replay advances
-LAUNCHED = ("frame_window", "overlap_add_normalize")
+LAUNCHED = ("frame_window", "overlap_add_normalize", "motion_stem",
+            "motion_stem_wgrad")
 
 
 @dataclasses.dataclass

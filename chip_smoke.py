@@ -26,6 +26,17 @@ script exits non-zero before printing any result.
    frame, padded rows of both parities, a misaligned output run, a block
    that opts in to more than 48 KB of shared memory), overlap-add with the
    clip on and off.
+   motion_stem: the motion net's bfloat16 stem kernels (forward, weight
+   gradient) against their plain version on the card at the clips cell's
+   shape (one source's ``[:, n]`` view of 16 clips of 32 x 224 x 224
+   uint8), within the tolerance of tests/test_torch_motion_stem.py; two
+   weight gradients bit for bit; the times of the kernels, of the plain
+   version and of cuDNN's bf16 convolution alone (``library_ms``), and of
+   cuDNN on two tensor-core shapes (the 3 input channels padded to 8; the
+   5 temporal taps folded into 15 channels of a 2-D convolution), per
+   call and per AV step (two calls), and the bound.  ``--only
+   motion_stem`` runs it alone, and counts no launches: the main paths
+   below count the stem's.
 4. separate: the flagship configuration of bench.py (unet7,
    resnet18dilated-256, hidsep/sig fusion, log-frequency warp, binary
    masks, dft "matmul") at full width through ``engine.separate``, B = 16,
@@ -141,10 +152,12 @@ script exits non-zero before printing any result.
    steps, then timed AV and AO steps, ms per step of each kind, samples/s,
    peak memory; frame_window twice per step, finite losses, an AV step
    leaving the frame net and group bit for bit, an AO step the frame and
-   motion nets and groups; one profiled AV step each, with the 3-D
-   convolutions' share of the device time.
+   motion nets and groups; the motion stem's pair twice per AV step in
+   bfloat16 and never in an AO step or in float32; one profiled AV step
+   each, with the 3-D convolutions' share of the device time.
    clipatt_eval: AV and AO eval steps with clips (eval_MUSIC.sh +
-   CoLoc_ClipAtt, B = 16): ms per step, 3 + 1 launches per step.
+   CoLoc_ClipAtt, B = 16, float32): ms per step, 3 + 1 launches per step,
+   no stem launch.
    clipatt_card_vs_cpu: one AV and one AO step of the clips branch at a
    small size (unet5, the full-width fast pathway on 4 x 64 x 64 clips,
    B = 2), card against CPU under ``settled_cudnn``, within
@@ -159,7 +172,8 @@ script exits non-zero before printing any result.
    train_MUSIC.sh's flags plus ``--fusion_type CoLoc_ClipAtt --load_clips
    --frame_decode native`` on data/mini (cuts stated in its line): the
    route printed, finite losses, one eval, 2 launches per train step and
-   3 + 1 per eval step, TF32 off.
+   3 + 1 per eval step, the stem's forward 2 per AV train or eval step and
+   its weight gradient 2 per AV train step, TF32 off.
 18. Data parallelism (avsep_tpu_torch/parallel/), each path in child
    processes of this script (``--dist-child``) that count their own
    kernels' launches.  NCCL refuses two ranks on one card, so the two
@@ -237,8 +251,10 @@ script exits non-zero before printing any result.
    eager step within ``TRAIN_TOL["loss_rel_err"]``, 2 / 0 launches per
    step.  ``python3 chip_smoke.py --only trace_tools`` runs this phase
    alone.
-Then the kernel table as one JSON line (launches summed over the main
-paths' runs, by path and per call), the nvidia-smi line, and last
+Every main path's launches are counted for the four counters of
+``train.LAUNCHED``; a path that names no stem launches must show none.
+Then the kernel table as one JSON line, a row per counted kernel
+(launches summed over the main paths' runs, by path and per call), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -606,6 +622,179 @@ def check_ragged(dev, gen):
          shapes=cases)
 
 
+# the motion stem at the clips cell: one source of an AV step's batch
+STEM_CLIPS = (16, 32, 224, 224)
+BF16_FLOPS_PER_S = 989e12
+
+
+def _stem_error(got, want, magnitudes, chain):
+    """The largest error of ``got`` against ``want`` over its tolerance,
+    and the median of the tolerance as a share of ``want``'s magnitude:
+    each side's bfloat16 rounding (2^-8 of its value) plus ``chain``
+    float32 roundings of the summed magnitudes, twice (one per summation
+    order); an exact zero against an exact zero reads 0."""
+    got, want = got.float(), want.float()
+    tol = 2.0 ** -7 * torch.maximum(got.abs(), want.abs()) \
+        + 2 * chain * 2.0 ** -24 * magnitudes
+    err = (got - want).abs()
+    share = (tol / want.abs())[want != 0]
+    return (float(torch.where(err == 0, 0.0, err / tol).max()),
+            float(share.median()))
+
+
+def _stem_library_variants(x, wb, grad):
+    """The cuDNN stem on a tensor-core shape, two ways, from the stem's
+    bfloat16 input ``x`` [B, 3, T, H, W]: the 3 input channels zero-padded
+    to 8 (a Conv3d), and the 5 temporal taps folded into 15 channels of a
+    2-D convolution over B * T frames.  Each as (forward, weight gradient
+    as [8, 3, 5, 7, 7] float32, the two calls to time); the padded or
+    folded input is made once, outside the timed calls."""
+    import torch.nn.functional as F
+    stride, pad = kernels.STEM_STRIDE, kernels.STEM_PADDING
+    B, C, T, H, W = x.shape
+    xp = F.pad(x, (0, 0, 0, 0, 0, 0, 0, 8 - C)).contiguous(
+        memory_format=torch.channels_last_3d)
+    wp = F.pad(wb, (0, 0, 0, 0, 0, 0, 0, 8 - C)).contiguous(
+        memory_format=torch.channels_last_3d)
+    xt = F.pad(x, (0, 0, 0, 0, 2, 2))
+    xf = torch.stack([xt[:, :, k:k + T] for k in range(5)], 1) \
+        .permute(0, 3, 1, 2, 4, 5).reshape(B * T, 5 * C, H, W) \
+        .contiguous(memory_format=torch.channels_last)
+    wf = wb.permute(0, 2, 1, 3, 4).reshape(8, 5 * C, 7, 7).contiguous(
+        memory_format=torch.channels_last)
+    gf = grad.permute(0, 2, 1, 3, 4).reshape(B * T, 8, *grad.shape[-2:]) \
+        .contiguous(memory_format=torch.channels_last)
+
+    def padded_wgrad():
+        return torch.ops.aten.convolution_backward(
+            grad, xp, wp, None, stride, pad, (1, 1, 1), False, (0, 0, 0), 1,
+            (False, True, False))[1]
+
+    def folded_wgrad():
+        return torch.ops.aten.convolution_backward(
+            gf, xf, wf, None, (2, 2), (3, 3), (1, 1), False, (0, 0), 1,
+            (False, True, False))[1]
+
+    def folded():
+        return F.conv2d(xf, wf, None, (2, 2), (3, 3))
+
+    def padded():
+        return F.conv3d(xp, wp, None, stride, pad)
+
+    out = {"padded": (padded(), padded_wgrad()[:, :C].float(),
+                      padded, padded_wgrad),
+           "folded": (folded().reshape(B, T, 8, *grad.shape[-2:])
+                      .permute(0, 2, 1, 3, 4),
+                      folded_wgrad().reshape(8, 5, C, 7, 7)
+                      .permute(0, 2, 1, 3, 4).float(), folded, folded_wgrad)}
+    return out
+
+
+def check_motion_stem(dev, flush):
+    """``kernels.motion_stem`` and ``motion_stem_wgrad`` at the clips cell's
+    shape (phase ``motion_stem``), from a generator of their own, against
+    their plain version; beside them cuDNN's bfloat16 Conv3d as the net ran
+    it (``library_ms``) and on the two tensor-core shapes of
+    :func:`_stem_library_variants`.  The output gradient has mean 1, so
+    that the weight gradient's sums do not cancel and its tolerance stays
+    a small share of each value.  Returns the table's two rows."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    B, T, H, W = STEM_CLIPS
+    batch = torch.randint(0, 256, (B, 2, T, H, W, 3), dtype=torch.uint8,
+                          device=dev, generator=g)
+    clips = batch[:, 0]
+    fan_out = kernels.STEM_WEIGHT[0] * 5 * 7 * 7
+    w = torch.randn(kernels.STEM_WEIGHT, device=dev, generator=g) * \
+        (2.0 / fan_out) ** 0.5
+    OH, OW = (H + 1) // 2, (W + 1) // 2
+    grad = (torch.randn((B, 8, T, OH, OW), device=dev, generator=g)
+            + 1.0).bfloat16()
+    stride, pad = kernels.STEM_STRIDE, kernels.STEM_PADDING
+    x = kernels._stem_input(clips)
+    wb = w.bfloat16()
+
+    def library_wgrad():
+        return torch.ops.aten.convolution_backward(
+            grad, x, wb, None, stride, pad, (1, 1, 1), False, (0, 0, 0), 1,
+            (False, True, False))[1]
+
+    got = kernels.motion_stem(clips, w)
+    plain = kernels.motion_stem_plain(clips, w)
+    mags = F.conv3d(x.float().abs(), wb.float().abs(), None, stride, pad)
+    err, share = _stem_error(got, plain, mags, 735)
+    gw = kernels.motion_stem_wgrad(clips, grad, w)
+    gw_plain = kernels.motion_stem_wgrad_plain(clips, grad, w)
+    mags_w = torch.ops.aten.convolution_backward(
+        grad.float().abs(), x.float().abs(), wb.float().abs(), None, stride,
+        pad, (1, 1, 1), False, (0, 0, 0), 1, (False, True, False))[1]
+    err_w, share_w = _stem_error(gw, gw_plain, mags_w, 1024)
+    repeats = torch.equal(gw, kernels.motion_stem_wgrad(clips, grad, w))
+    abs_err = [float((a.float() - b.float()).abs().max())
+               for a, b in ((got, plain), (gw, gw_plain))]
+    torch.cuda.synchronize()
+    if err > 1.0 or err_w > 1.0 or not repeats:
+        raise AssertionError(f"motion_stem disagrees with its plain version: "
+                             f"forward {err}, weight gradient {err_w} of "
+                             f"their tolerances; repeats {repeats}")
+    del got, gw
+    # cuDNN on tensor-core shapes, held to the plain version as the kernel
+    variants = _stem_library_variants(x, wb, grad)
+    variant_err = {k: [_stem_error(v[0], plain, mags, 735)[0],
+                       _stem_error(v[1], gw_plain, mags_w, 1024)[0]]
+                   for k, v in variants.items()}
+    del plain, gw_plain, mags, mags_w
+    t = {"ms": lambda: kernels.motion_stem(clips, w),
+         "plain_ms": lambda: kernels.motion_stem_plain(clips, w),
+         "library_ms": lambda: F.conv3d(x, wb, None, stride, pad),
+         "wgrad_ms": lambda: kernels.motion_stem_wgrad(clips, grad, w),
+         "wgrad_plain_ms": lambda: kernels.motion_stem_wgrad_plain(
+             clips, grad, w),
+         "wgrad_library_ms": library_wgrad}
+    for k, v in variants.items():
+        t[f"library_{k}_ms"], t[f"wgrad_library_{k}_ms"] = v[2], v[3]
+    ms = {k: time_ms(fn, flush) for k, fn in t.items()}
+    del variants
+    t_fill = time_ms(lambda: grad.fill_(1.0), flush)
+    flops = 2 * B * T * OH * OW * 8 * 735
+    n_out = 2 * B * T * OH * OW * 8
+    bounds = {"ms": max(flops / BF16_FLOPS_PER_S,
+                        (clips.numel() + n_out) / HBM_BYTES_PER_S) * 1e3,
+              "wgrad_ms": max(flops / BF16_FLOPS_PER_S,
+                              (clips.numel() + n_out + 4 * w.numel())
+                              / HBM_BYTES_PER_S) * 1e3}
+    emit("kernel", name="motion_stem", route="cuda",
+         source="avsep_tpu_torch/csrc/motion_stem.cu",
+         replaces="none (cuDNN's bf16 Conv3d of the motion net's stem)",
+         max_err_over_tol=err, wgrad_max_err_over_tol=err_w,
+         max_abs_err=abs_err[0], wgrad_max_abs_err=abs_err[1],
+         tol_share_of_value=share, wgrad_tol_share_of_value=share_w,
+         library_variants_err_over_tol=variant_err,
+         wgrad_repeats=repeats, shape_in=list(clips.shape),
+         strides_in=list(clips.stride()), shape_out=[B, 8, T, OH, OW],
+         flops_per_pass=flops, bound_by="operations", **ms,
+         bound_ms=bounds["ms"], share_of_bound=bounds["ms"] / ms["ms"],
+         wgrad_bound_ms=bounds["wgrad_ms"],
+         wgrad_share_of_bound=bounds["wgrad_ms"] / ms["wgrad_ms"],
+         tflops=flops / ms["ms"] / 1e9,
+         wgrad_tflops=flops / ms["wgrad_ms"] / 1e9,
+         per_av_step={k: 2 * v for k, v in ms.items()},
+         fill_grad_ms=t_fill, nvidia_smi=nvidia_smi_line())
+    # the kernels line's rows, one per counted kernel
+    common = dict(route="cuda", source="avsep_tpu_torch/csrc/motion_stem.cu",
+                  bound_by="operations")
+    return [dict(common, name="motion_stem",
+                 replaces="none (cuDNN's bf16 Conv3d of the motion net's "
+                 "stem)", max_abs_err=abs_err[0], ms=ms["ms"],
+                 plain_ms=ms["plain_ms"], bound_ms=bounds["ms"],
+                 library_ms=ms["library_ms"]),
+            dict(common, name="motion_stem_wgrad",
+                 replaces="none (cuDNN's bf16 weight gradient of the motion "
+                 "net's stem)", max_abs_err=abs_err[1], ms=ms["wgrad_ms"],
+                 plain_ms=ms["wgrad_plain_ms"], bound_ms=bounds["wgrad_ms"],
+                 library_ms=ms["wgrad_library_ms"])]
+
+
 def flagship_inputs(gen, dev, n, batch):
     audio = [(0.1 * torch.randn(batch, AUD_LEN, generator=gen)).to(dev)
              for _ in range(n)]
@@ -625,21 +814,15 @@ def run_flagship(dev, gen):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    kernels.frame_window.launches = 0
-    kernels.overlap_add_normalize.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     outs = [engine.separate(nets, audio[i], frames[i], cfg)
             for i in range(REQUESTS)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"frame_window": kernels.frame_window.launches,
-                "overlap_add_normalize":
-                    kernels.overlap_add_normalize.launches}
+    launches = read_launches()
 
-    for name, n in launches.items():
-        if n != REQUESTS:
-            raise AssertionError(f"{name} launched {n} times in {REQUESTS} "
-                                 f"separate() calls; expected one per call")
+    expect_launches("separate", launches, REQUESTS, REQUESTS)
     out = outs[-1]
     T = 1 + AUD_LEN // HOP
     expect = {"wavs": (B, 2, HOP * (T - 1)), "masks": (B, 2, 256, T),
@@ -822,8 +1005,7 @@ def run_train(dev, gen, dtype="float32"):
         errs.append(m["err"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.frame_window.launches = 0
-    kernels.overlap_add_normalize.launches = 0
+    reset_launches()
     per_step = []
     wall = 0.0
     for i in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS):
@@ -844,9 +1026,7 @@ def run_train(dev, gen, dtype="float32"):
             after = state.nets.frame.state_dict()
             frozen.append(all(torch.equal(v, after[k])
                               for k, v in before.items()))
-    launches = {"frame_window": kernels.frame_window.launches,
-                "overlap_add_normalize":
-                    kernels.overlap_add_normalize.launches}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if per_step != [2] * TRAIN_STEPS:
         raise AssertionError(f"{phase}: frame_window launches per train step "
@@ -1267,8 +1447,7 @@ def run_eval(dev, gen):
         evaluate.evaluate(cfg, nets, loader, history, 0, use_vis)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.frame_window.launches = 0
-    kernels.overlap_add_normalize.launches = 0
+    reset_launches()
     with EvalTimer() as timer:
         for use_vis in (True, False):
             branch = "av" if use_vis else "ao"
@@ -1287,9 +1466,7 @@ def run_eval(dev, gen):
                 "eval_metrics_ms": metrics_ms,
                 "eval_metrics_share": sum(metrics_ms) / sum(steps_ms),
                 "clips_per_s": n / wall, "wall_s": wall, "mean_metrics": means}
-    launches = {"frame_window": kernels.frame_window.launches,
-                "overlap_add_normalize":
-                    kernels.overlap_add_normalize.launches}
+    launches = read_launches()
     per_step = timer.launches
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if per_step != [(3, 1)] * (2 * EVAL_BATCHES):
@@ -1439,8 +1616,8 @@ try:
     runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
 finally:
     print(json.dumps({"launches": {
-        "frame_window": kernels.frame_window.launches,
-        "overlap_add_normalize": kernels.overlap_add_normalize.launches},
+        k: getattr(kernels, k).launches for k in ("frame_window",
+            "overlap_add_normalize", "motion_stem", "motion_stem_wgrad")},
         "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
                  "cuda_matmul": torch.backends.cuda.matmul.allow_tf32}}),
         flush=True)
@@ -1477,18 +1654,21 @@ def opts_flags(name: str):
 
 
 def reset_launches():
-    kernels.frame_window.launches = 0
-    kernels.overlap_add_normalize.launches = 0
+    for k in train.LAUNCHED:
+        getattr(kernels, k).launches = 0
 
 
 def read_launches():
-    return {"frame_window": kernels.frame_window.launches,
-            "overlap_add_normalize": kernels.overlap_add_normalize.launches}
+    return {k: getattr(kernels, k).launches for k in train.LAUNCHED}
 
 
-def expect_launches(phase, got, frame_window, overlap_add):
+def expect_launches(phase, got, frame_window, overlap_add, stem=0,
+                    stem_wgrad=0):
+    """``got`` equal to the given launches of each kernel: the motion
+    stem's pair launches only where a bfloat16 motion net runs."""
     want = {"frame_window": frame_window,
-            "overlap_add_normalize": overlap_add}
+            "overlap_add_normalize": overlap_add, "motion_stem": stem,
+            "motion_stem_wgrad": stem_wgrad}
     if got != want:
         raise AssertionError(f"{phase}: launches {got}, expected {want}")
 
@@ -2071,8 +2251,11 @@ def run_clipatt_train(dev, dtype="float32"):
     then timed AV and AO steps as batch_scheduler says, host clock around
     each (synchronized); frame_window twice per step, finite losses, an
     AV step leaves the frame net and group bit for bit, an AO step the
-    frame and motion nets and groups; then one profiled AV step."""
+    frame and motion nets and groups; in bfloat16 the motion stem's pair
+    twice per AV step (one per source) and never in an AO step, in float32
+    never; then one profiled AV step."""
     phase = "clipatt_train" if dtype == "float32" else "clipatt_train_bf16"
+    bf16 = dtype != "float32"
     cfg = Config(**CLIPATT, dtype=dtype)
     state = train.init_state(cfg, engine.build_nets(cfg),
                              torch.Generator().manual_seed(SEED))
@@ -2091,11 +2274,12 @@ def run_clipatt_train(dev, dtype="float32"):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     times, per_step, frozen = {True: [], False: []}, [], []
+    stem_per_step, stem_want = [], []
     wall = 0.0
     for i in range(CLIPATT_WARMUP, CLIPATT_WARMUP + CLIPATT_STEPS):
         av = use_vis(i)
         snap = frozen_snapshot(state, train.frozen_nets(cfg, av))
-        n0 = kernels.frame_window.launches
+        n0 = read_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = steps[av](state, batches[i], generator=swap)
@@ -2103,7 +2287,11 @@ def run_clipatt_train(dev, dtype="float32"):
         dt = time.perf_counter() - t0
         wall += dt
         times[av].append(1e3 * dt)
-        per_step.append(kernels.frame_window.launches - n0)
+        n1 = read_launches()
+        per_step.append(n1["frame_window"] - n0["frame_window"])
+        stem_per_step.append([n1[k] - n0[k] for k in ("motion_stem",
+                                                      "motion_stem_wgrad")])
+        stem_want.append([2 * (av and bf16)] * 2)
         losses += [float(m["err"]), float(m["match_loss"])]
         frozen.append(unchanged(state, snap))
     launches = read_launches()
@@ -2112,6 +2300,10 @@ def run_clipatt_train(dev, dtype="float32"):
         raise AssertionError(f"{phase}: frame_window launches per step "
                              f"{per_step} (expected 2 each), "
                              f"{launches}")
+    if stem_per_step != stem_want:
+        raise AssertionError(f"{phase}: motion stem (forward, weight "
+                             f"gradient) launches per step {stem_per_step}, "
+                             f"expected {stem_want}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{phase}: non-finite loss: {losses}")
     if not all(frozen):
@@ -2128,7 +2320,8 @@ def run_clipatt_train(dev, dtype="float32"):
          ms_per_ao_step=float(np.median(times[False])),
          av_step_ms=times[True], ao_step_ms=times[False],
          samples_per_s=B * CLIPATT_STEPS / wall, peak_mem_gib=peak,
-         frame_window_launches_per_step=per_step, launches=launches,
+         frame_window_launches_per_step=per_step,
+         motion_stem_launches_per_step=stem_per_step, launches=launches,
          losses=losses, frozen_nets_unchanged=frozen)
     av_step = steps[True]
     profile_calls(f"{phase}_profile", lambda i: av_step(
@@ -2189,6 +2382,8 @@ def run_clipatt_eval(dev):
         raise AssertionError(f"clipatt_eval: (frame_window, "
                              f"overlap_add_normalize) per step {per_step}; "
                              "expected (3, 1)")
+    expect_launches("clipatt_eval", launches, 3 * 2 * CLIPATT_EVAL_STEPS,
+                    2 * CLIPATT_EVAL_STEPS)
     emit("clipatt_eval", config="scripts/eval_MUSIC.sh + --fusion_type "
          "CoLoc_ClipAtt --load_clips (unet7, fast pathway base 8, clip_len "
          "32 at 224x224, float32, TF32 off, dft fft)", batch=B,
@@ -2324,7 +2519,8 @@ def cli_clipatt(decode):
     ``--val_repeat`` 12 -> 2, ``--num_vis`` 100 -> 0; clip_len stays 32.
     "Training Done!", finite losses, the route printed, one finite
     results.csv row per clip and branch, 2 launches per train step and
-    3 + 1 per eval step, TF32 off."""
+    3 + 1 per eval step, the motion stem's forward 2 per AV train or eval
+    step and its weight gradient 2 per AV train step, TF32 off."""
     manifest = os.path.join("data", "mini", "train.csv")
     argv = ["--mode", "train"] + script_flags("train_MUSIC.sh") + [
         "--fusion_type", "CoLoc_ClipAtt", "--load_clips", "--frame_decode",
@@ -2356,8 +2552,12 @@ def cli_clipatt(decode):
         if len(rows) != n or not np.isfinite(vals).all():
             raise AssertionError(f"cli_clipatt {branch}: {len(rows)} rows "
                                  f"(expected {n}) or non-finite metrics")
+    # the CLI's iterations 1 .. CLI_CLIPATT_ITERS, half the eval steps AV
+    av_iters = sum(map(train.batch_scheduler(cfg),
+                       range(1, CLI_CLIPATT_ITERS + 1)))
     expect_launches("cli_clipatt", launches,
-                    2 * CLI_CLIPATT_ITERS + 3 * eval_steps, eval_steps)
+                    2 * CLI_CLIPATT_ITERS + 3 * eval_steps, eval_steps,
+                    2 * av_iters + eval_steps, 2 * av_iters)
     emit("cli_clipatt", argv=argv, batch=cfg.batch_size, dtype=cfg.dtype,
          clip_len=cfg.clip_len, frame_decode=route[0],
          iterations=CLI_CLIPATT_ITERS, eval_steps=eval_steps, clips=n,
@@ -3613,7 +3813,8 @@ def measure_tools(dev):
             if not (want["frame_window"] <= got["frame_window"]
                     <= want["frame_window"] + 2 * oom
                     and got["overlap_add_normalize"]
-                    == want["overlap_add_normalize"]):
+                    == want["overlap_add_normalize"]
+                    and not got["motion_stem"] + got["motion_stem_wgrad"]):
                 raise AssertionError(f"measure_tools {name}: launches {got}"
                                      f", expected {want} + up to {oom} "
                                      "steps")
@@ -3785,8 +3986,9 @@ def main() -> int:
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
     rows = [check_frame_window(dev, gen, flush),
             check_overlap_add(dev, gen, flush)]
-    del flush
     check_ragged(dev, gen)
+    rows += check_motion_stem(dev, flush)
+    del flush
 
     sep_launches, nets, flagship = run_flagship(dev, gen)
     card_vs_cpu(dev, gen, nets)
@@ -3877,21 +4079,32 @@ def main() -> int:
     return 0
 
 
+def motion_stem_only():
+    """The motion_stem phase alone; it runs no main path, so it counts no
+    launches."""
+    dev = torch.device(DEVICE)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    check_motion_stem(dev, flush)
+    return {}, {}
+
+
 def only(argv) -> int:
     """``python3 chip_smoke.py --only cli_launch``: the card line, the
     kernels' build and the cli_launch phase alone, for a machine with two
     or more cards (its part (c)); ``--only proof_tools`` the same with the
     proof_tools phase (without the train phase's rates), ``--only
     measure_tools`` with the measure_tools phase, ``--only trace_tools``
-    with the trace_tools phase; then the launches by path."""
+    with the trace_tools phase, ``--only motion_stem`` with the motion
+    stem's kernel phase; then the launches by path."""
     phases = {"cli_launch": cli_launch,
               "proof_tools": lambda: proof_tools(torch.device(DEVICE)),
               "measure_tools": lambda: measure_tools(torch.device(DEVICE)),
-              "trace_tools": trace_tools}
+              "trace_tools": trace_tools,
+              "motion_stem": motion_stem_only}
     if len(argv) != 1 or argv[0] not in phases or \
             not torch.cuda.is_available():
-        print("chip_smoke --only: cli_launch, proof_tools, measure_tools or "
-              "trace_tools, on a GPU", file=sys.stderr)
+        print("chip_smoke --only: cli_launch, proof_tools, measure_tools, "
+              "trace_tools or motion_stem, on a GPU", file=sys.stderr)
         return 2
     engine.full_float32()
     emit("card", nvidia_smi=nvidia_smi_line(),

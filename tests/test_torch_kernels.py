@@ -158,14 +158,19 @@ def _c_params(src: str, fn: str):
 
 
 def test_ctypes_argtypes_match_the_c_signatures():
-    # a pointer (or the stream) passed as c_int would be cut to 32 bits
+    # a pointer (or the stream) passed as c_int would be cut to 32 bits, a
+    # long long as c_int too, and a float passed as c_int is not a float
     for name, (src, fn) in pk.SOURCES.items():
         with open(os.path.join(pk.CSRC_DIR, src)) as f:
             params = _c_params(f.read(), fn)
         want = [ctypes.c_void_p if ("*" in p or "cudaStream_t" in p)
+                else ctypes.c_longlong if p.startswith("long long ")
+                else ctypes.c_float if p.startswith("float ")
                 else ctypes.c_int for p in params]
-        assert all(p.startswith(("int ", "const float*", "float*",
-                                 "cudaStream_t")) for p in params), params
+        assert all(p.startswith(("int ", "long long ", "float ",
+                                 "const float*", "float*", "const void*",
+                                 "void*", "cudaStream_t"))
+                   for p in params), params
         assert pk.ARGTYPES[name] == want, name
 
 
@@ -177,7 +182,9 @@ def test_build_targets_hopper_and_keys_on_the_source():
         path = pk.library_path(name)
         assert path.startswith(pk.BUILD_DIR) and path.endswith(".so")
         assert path == pk.library_path(name)
-    assert len({pk.library_path(n) for n in pk.SOURCES}) == len(pk.SOURCES)
+    # one library per source, whatever number of kernels it holds
+    assert len({pk.library_path(n) for n in pk.SOURCES}) == \
+        len({src for src, _ in pk.SOURCES.values()})
 
 
 def test_cuda_sources_name_the_tpu_kernel_they_replace():
