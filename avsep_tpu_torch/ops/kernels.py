@@ -22,8 +22,9 @@ alone: a CPU tensor goes to the plain PyTorch version in this module, a CUDA
 tensor launches the kernel on the current stream or raises.  Each wrapper
 counts its kernel launches in a plain integer attribute
 (``frame_window.launches``, ``overlap_add_normalize.launches``,
-``motion_stem.launches``, ``motion_stem_wgrad.launches``) so that a run can
-show that the main path went through the kernels.
+``motion_stem.launches``, ``motion_stem_wgrad.launches``; :func:`launch_counts`
+reads them all) so that a run can show that the main path went through the
+kernels.
 
 The sources are compiled at first use by ``nvcc`` (for ``sm_90a``) into one
 shared library per source, with a plain C interface, under
@@ -142,6 +143,12 @@ def build() -> Dict[str, str]:
                 proc.kill()
                 proc.wait()
     return paths
+
+
+def launch_counts() -> Dict[str, int]:
+    """Each kernel's launch counter, by the kernel's name: every kernel of
+    :data:`SOURCES`."""
+    return {name: globals()[name].launches for name in SOURCES}
 
 
 @functools.lru_cache(maxsize=None)

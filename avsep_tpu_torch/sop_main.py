@@ -34,6 +34,7 @@ re-imports the main module) stays a numpy + PIL process.
 from __future__ import annotations
 
 import csv
+import functools
 import os
 import time
 from typing import Dict, Iterable, Optional
@@ -107,29 +108,17 @@ def init_sop_state(cfg: Config, nets, generator, device=None):
 
 def make_sop_train_step(cfg: Config, nets, use_vis: bool, stage: int,
                         device=None):
-    """Returns ``step(state, batch) -> (state, metrics)``: one SoP++
-    forward in train mode (AV at ``stage``, or AO), one backward and one
-    SGD update of the groups that advance, in place; ``metrics`` holds the
-    detached ``err`` and ``match_loss``.  The nets must lie on ``device``
-    (``cuda`` unless ``device="cpu"``).  The spans are
-    ``train.make_eager_train_step``'s."""
-    from avsep_tpu_torch import engine, train
+    """``train.make_eager_train_step``'s step with the SoP++ forward at
+    ``stage`` (``sop_forward``): ``step(state, batch) -> (state, metrics)``,
+    one forward in train mode (AV at ``stage``, or AO), one backward and
+    one SGD update of the groups that advance, in place, under the train
+    step's spans.  The forward takes no draw.  The nets must lie on
+    ``device`` (``cuda`` unless ``device="cpu"``)."""
+    from avsep_tpu_torch import train
     from avsep_tpu_torch.sop_engine import sop_forward
-    from avsep_tpu_torch.utils import spans
-    engine.nets_device(nets, device)
-    kind = "av" if use_vis else "ao"
-
-    def step(state, batch):
-        with spans.span("train.step", kind=kind):
-            with spans.span("train.forward"):
-                err, outputs = sop_forward(state.nets, batch, cfg, use_vis,
-                                           train=True, stage=stage)
-            train.apply_gradients(cfg, state, err, use_vis)
-            with spans.span("train.metrics"):
-                metrics = train.step_metrics(err, outputs["match_loss"])
-        return state, metrics
-
-    return step
+    return train.make_eager_train_step(
+        cfg, nets, use_vis, device,
+        forward=functools.partial(sop_forward, stage=stage))
 
 
 def make_sop_eval_step(cfg: Config, nets, use_vis: bool, device=None):

@@ -37,6 +37,7 @@ and the momentum buffers, are the tensors of the state passed in.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -52,10 +53,6 @@ from avsep_tpu_torch.models.torch_import import (
 from avsep_tpu_torch.ops import kernels
 from avsep_tpu_torch.parallel import distributed as pdist
 from avsep_tpu_torch.utils import spans
-
-# the port's kernels whose launch counters a replay advances
-LAUNCHED = ("frame_window", "overlap_add_normalize", "motion_stem",
-            "motion_stem_wgrad")
 
 
 @dataclasses.dataclass
@@ -267,14 +264,17 @@ def step_metrics(err: torch.Tensor, match_loss: torch.Tensor
     return metrics
 
 
-def _step(cfg: Config, use_vis: bool, state: TrainState, batch,
-          swap_uniforms, generator) -> Tuple[TrainState, Dict]:
-    """One forward, backward and SGD update in place, under the spans
-    ``train.forward``, :func:`apply_gradients`' and ``train.metrics``."""
+def _step(cfg: Config, use_vis: bool, forward: Callable, state: TrainState,
+          batch, swap_uniforms, generator) -> Tuple[TrainState, Dict]:
+    """One ``forward`` in train mode, backward and SGD update in place,
+    under the spans ``train.forward``, :func:`apply_gradients`' and
+    ``train.metrics``.  ``forward`` gets the slot swap's draw only where
+    one is given: a forward that takes none raises on it."""
+    draw = {k: v for k, v in (("swap_uniforms", swap_uniforms),
+                              ("generator", generator)) if v is not None}
     with spans.span("train.forward"):
-        err, outputs = engine.forward(
-            state.nets, batch, cfg, use_vis, train=True,
-            swap_uniforms=swap_uniforms, generator=generator)
+        err, outputs = forward(state.nets, batch, cfg, use_vis, train=True,
+                               **draw)
     apply_gradients(cfg, state, err, use_vis)
     with spans.span("train.metrics"):
         metrics = step_metrics(err, outputs["match_loss"])
@@ -282,40 +282,44 @@ def _step(cfg: Config, use_vis: bool, state: TrainState, batch,
 
 
 def make_eager_train_step(cfg: Config, nets: Nets, use_vis: bool,
-                          device=None) -> Callable:
+                          device=None, forward: Callable = engine.forward
+                          ) -> Callable:
     """Returns ``step(state, batch, *, swap_uniforms=None, generator=None)
-    -> (state, metrics)``: one forward (AV if ``use_vis``, else AO), one
-    backward and one SGD update, in place, each operation dispatched from
-    the host as it comes; ``metrics`` holds the detached ``err`` and
-    ``match_loss`` (:func:`step_metrics`).  The AO step's slot swap takes
-    ``swap_uniforms [B]`` (this rank's rows) or ``generator``.  The nets
-    must lie on ``device`` (``cuda`` unless ``device="cpu"``).  A step is
-    the span ``train.step`` (``kind`` ``av`` or ``ao``) over
-    ``train.forward``, :func:`apply_gradients`' spans and
-    ``train.metrics``."""
+    -> (state, metrics)``: one ``forward`` (AV if ``use_vis``, else AO),
+    one backward and one SGD update, in place, each operation dispatched
+    from the host as it comes; ``metrics`` holds the detached ``err`` and
+    ``match_loss`` (:func:`step_metrics`).  ``forward(nets, batch, cfg,
+    use_vis, *, train, ...) -> (err, outputs)`` is the family's:
+    :func:`engine.forward`, whose AO slot swap takes ``swap_uniforms [B]``
+    (this rank's rows) or ``generator``, or SoP++'s ``sop_forward`` at a
+    stage, which takes no draw.  The nets must lie on ``device`` (``cuda``
+    unless ``device="cpu"``).  A step is the span ``train.step`` (``kind``
+    ``av`` or ``ao``) over ``train.forward``, :func:`apply_gradients`'
+    spans and ``train.metrics``."""
     engine.nets_device(nets, device)
     kind = "av" if use_vis else "ao"
 
     def step(state: TrainState, batch, *, swap_uniforms=None,
              generator=None) -> Tuple[TrainState, Dict]:
         with spans.span("train.step", kind=kind):
-            return _step(cfg, use_vis, state, batch, swap_uniforms,
+            return _step(cfg, use_vis, forward, state, batch, swap_uniforms,
                          generator)
 
     return step
 
 
 def make_train_step(cfg: Config, nets: Nets, use_vis: bool,
-                    device=None) -> Callable:
+                    device=None, forward: Callable = engine.forward
+                    ) -> Callable:
     """The step of :func:`make_eager_train_step`, which on a CUDA device
     outside a process group runs as one replay of a CUDA graph per call
     (:class:`GraphedStep`); on the CPU it is the eager step itself."""
     dev = engine.nets_device(nets, device)
-    eager = make_eager_train_step(cfg, nets, use_vis, dev)
+    eager = make_eager_train_step(cfg, nets, use_vis, dev, forward)
     if dev.type != "cuda":
         return eager
     return GraphedStep(cfg, use_vis, eager,
-                       next(nets.sound.parameters()).device)
+                       next(nets.sound.parameters()).device, forward)
 
 
 def learning_rates(cfg: Config, state: TrainState, use_vis: bool
@@ -363,7 +367,8 @@ class _Graph:
 
 
 class GraphedStep:
-    """:func:`make_eager_train_step`'s step, replayed as one CUDA graph.
+    """:func:`make_eager_train_step`'s step of ``forward``, replayed as one
+    CUDA graph.
 
     A call runs eager unless :func:`graphable` holds and every value of
     the batch is a tensor on the nets' device.  Otherwise it is keyed by
@@ -380,26 +385,30 @@ class GraphedStep:
     addresses, and its graphs).
 
     The replay is the eager step's kernels in its order; the host keeps
-    what the graph cannot: the AO slot swap's uniforms are drawn from the
-    same generator as the eager step draws them and reach the static input
-    through pinned memory without blocking (the caching host allocator
-    reuses a pinned block only once its copy has landed); each advancing
-    group's count and ``step`` go up by one; the kernels' launch counters
-    (``ops/kernels.py``) go up by the launches the capture counted; the
-    nets are put back in train mode.  ``metrics`` are fresh copies of the
-    graph's static outputs.  A step is the span ``train.step`` with the
-    counter ``train.graph_capture`` or ``train.graph_replay``; the inner
-    spans are recorded at the capture only, and a replay counts again
-    inside its ``train.step`` the clips the captured step ran through the
-    motion net (``motion.clips``, :func:`engine.motion_clips` of its
-    static batch: the recorder may be off at the capture).  The graphs
-    and their pools are this object's: dropping it frees them."""
+    what the graph cannot: the AO slot swap's uniforms (where ``forward``
+    takes a draw) are drawn from the same generator as the eager step
+    draws them and reach the static input through pinned memory without
+    blocking (the caching host allocator reuses a pinned block only once
+    its copy has landed); each advancing group's count and ``step`` go up
+    by one; the kernels' launch counters (:func:`kernels.launch_counts`)
+    go up by the launches the capture counted; the nets are put back in
+    train mode.  ``metrics`` are fresh copies of the graph's static
+    outputs.  A step is the span ``train.step`` with the counter
+    ``train.graph_capture`` or ``train.graph_replay``; the inner spans are
+    recorded at the capture only, and a replay counts again inside its
+    ``train.step`` the clips the captured step ran through the motion net
+    (``motion.clips``, :func:`engine.motion_clips` of its static batch:
+    the recorder may be off at the capture).  The graphs and their pools
+    are this object's: dropping it frees them."""
 
     def __init__(self, cfg: Config, use_vis: bool, eager: Callable,
-                 device: torch.device):
+                 device: torch.device, forward: Callable = engine.forward):
         self.cfg, self.use_vis, self.eager, self.device = (
             cfg, use_vis, eager, device)
+        self.forward = forward
         self.kind = "av" if use_vis else "ao"
+        self.draws = not use_vis and (
+            "swap_uniforms" in inspect.signature(forward).parameters)
         self.graph: Optional[_Graph] = None
         self.seen: Optional[tuple] = None   # the last key that ran eager
         self.nets, self.mods = None, []     # the state's nets, their modules
@@ -430,8 +439,8 @@ class GraphedStep:
 
     def _uniforms(self, batch, swap_uniforms, generator):
         """The AO slot swap's ``[B]`` draw, made as the eager step makes
-        it; None for an AV step, which draws none."""
-        if self.use_vis:
+        it; None for an AV step or a forward that draws none."""
+        if not self.draws:
             return None
         rows = next(iter(batch.values())).shape[0]
         return swap_uniforms_of(rows, swap_uniforms, generator)
@@ -453,7 +462,7 @@ class GraphedStep:
         groups = _groups_of(self.cfg, state, self.use_vis)
         counts = {g: state.opt_state[g].count for g in groups}
         step0 = state.step
-        launches0 = {k: getattr(kernels, k).launches for k in LAUNCHED}
+        launches0 = kernels.launch_counts()
         graph = torch.cuda.CUDAGraph()
         with spans.span("train.step", kind=self.kind):
             spans.count("train.graph_capture")
@@ -463,8 +472,9 @@ class GraphedStep:
                 # the global mode forbids in every thread
                 with torch.cuda.graph(graph,
                                       capture_error_mode="thread_local"):
-                    _, metrics = _step(self.cfg, self.use_vis, state,
-                                       static, static_u, None)
+                    _, metrics = _step(self.cfg, self.use_vis,
+                                       self.forward, state, static,
+                                       static_u, None)
             except BaseException:
                 # the capture ran no kernel: the host state stays too
                 for g, c in counts.items():
@@ -475,8 +485,7 @@ class GraphedStep:
         clips = engine.motion_clips(self.cfg, self.use_vis, static)
         self.graph = _Graph(
             key, graph, static, static_u, metrics, groups,
-            {k: getattr(kernels, k).launches - launches0[k]
-             for k in LAUNCHED},
+            {k: n - launches0[k] for k, n in kernels.launch_counts().items()},
             {"motion.clips": clips} if clips else {})
         return state, {k: v.clone() for k, v in metrics.items()}
 

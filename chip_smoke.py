@@ -251,8 +251,8 @@ script exits non-zero before printing any result.
    eager step within ``TRAIN_TOL["loss_rel_err"]``, 2 / 0 launches per
    step.  ``python3 chip_smoke.py --only trace_tools`` runs this phase
    alone.
-Every main path's launches are counted for the four counters of
-``train.LAUNCHED``; a path that names no stem launches must show none.
+Every main path's launches are counted for the counter of every kernel
+of ``kernels.SOURCES``; a path that names no stem launches must show none.
 Then the kernel table as one JSON line, a row per counted kernel
 (launches summed over the main paths' runs, by path and per call), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -1615,9 +1615,7 @@ sys.argv = sys.argv[1:]
 try:
     runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
 finally:
-    print(json.dumps({"launches": {
-        k: getattr(kernels, k).launches for k in ("frame_window",
-            "overlap_add_normalize", "motion_stem", "motion_stem_wgrad")},
+    print(json.dumps({"launches": kernels.launch_counts(),
         "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
                  "cuda_matmul": torch.backends.cuda.matmul.allow_tf32}}),
         flush=True)
@@ -1654,12 +1652,11 @@ def opts_flags(name: str):
 
 
 def reset_launches():
-    for k in train.LAUNCHED:
+    for k in kernels.SOURCES:
         getattr(kernels, k).launches = 0
 
 
-def read_launches():
-    return {k: getattr(kernels, k).launches for k in train.LAUNCHED}
+read_launches = kernels.launch_counts
 
 
 def expect_launches(phase, got, frame_window, overlap_add, stem=0,

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 import jax
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu.engine import Nets as JNets
 from avsep_tpu.engine import forward as jax_forward
 from avsep_tpu.models import criterion as jcrit
@@ -56,19 +57,6 @@ from tests.test_torch_models import random_variables
 
 FUSION = dict(fc_dim=2, num_downs=5, ngf=8, fusion_type="hidsep",
               att_type="sig")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this module's tests, restored after: the
-    tier-1 run puts six pytest workers on the machine's cores, and torch's
-    default of a thread per core then makes these small bf16 steps wait on
-    each other (on an 8-core CPU: 456 s of worker time for this module
-    under six workers, 40 s alone)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def nets_of(frame_arch, jdtype, pdtype):

@@ -17,6 +17,7 @@ import sys
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu import check_exp as jcheck_exp
 from avsep_tpu.config import parse_args as jparse_args
 from avsep_tpu_torch import check_exp

@@ -36,6 +36,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu.engine import Nets as JNets
 from avsep_tpu.models.motion import ResNet3dFastOnly as JFast
 from avsep_tpu.models.resnet import TinyConvEncoder as JTinyConvEncoder
@@ -43,14 +44,14 @@ from avsep_tpu.models.unet import AudioUnet as JAudioUnet
 from avsep_tpu.train import TrainState as JTrainState
 from avsep_tpu.train import make_optimizer, make_train_step as jmake_step
 from avsep_tpu_torch import checkpoint, engine, evaluate, train
-from avsep_tpu_torch.models.from_jax import load_from_jax, state_dict_from_jax
+from avsep_tpu_torch.models.from_jax import load_from_jax
 from avsep_tpu_torch.models.motion import ResNet3dFastOnly
 from avsep_tpu_torch.models.resnet import TinyConvEncoder
 from avsep_tpu_torch.models.unet import AudioUnet
 from tests.test_dataset import manifest  # noqa: F401 (fixture)
 from tests.test_torch_forward import configs, make_batch
 from tests.test_torch_models import random_variables
-from tests.test_torch_train import _close, jax_groups
+from tests.test_torch_train import check_step
 
 B = 4
 NETS = ("sound", "frame", "motion")
@@ -99,42 +100,6 @@ def clip_batch(seed):
     return batch
 
 
-def flat(params):
-    return {f"{net}.{k}": v.numpy() for net in NETS
-            for k, v in state_dict_from_jax(params[net], {}).items()}
-
-
-def check_step(pstate, pm, jstate, jm, params0):
-    assert abs(pm["err"].item() - float(jm["err"])) <= 1e-5 * abs(
-        float(jm["err"]))
-    jg = jax_groups(jstate.opt_state)
-    assert set(jg) == set(pstate.opt_state) == {"sound", "frame", "motion"}
-    tops = [np.abs(b).max() for g in jg.values() for b in g[1].values()]
-    for g, (count, bufs) in jg.items():
-        mine = pstate.opt_state[g]
-        assert mine.count == count, g
-        assert set(mine.momentum) == set(bufs), g
-        for name, buf in mine.momentum.items():
-            ref = bufs[name]
-            assert _close(buf.numpy(), ref,
-                          max(np.abs(ref).max(), 1e-4 * max(tops)),
-                          tol=1e-2), name
-    p0, pj = flat(params0), flat(jstate.params)
-    moves = {n: np.abs(pj[n] - p0[n]).max() for n in pj}
-    for name, p in train.named_parameters(pstate.nets):
-        scale = max(moves[name], 1e-4 * max(moves.values()))
-        assert np.abs(p.detach().numpy() - pj[name]).max() <= \
-            2e-3 * scale + 1e-6 * np.abs(pj[name]).max(), name
-    for net in NETS:
-        want = state_dict_from_jax(jstate.params[net],
-                                   jstate.batch_stats[net])
-        sd = getattr(pstate.nets, net).state_dict()
-        for k, v in want.items():
-            if k.endswith(("running_mean", "running_var")):
-                assert np.abs(sd[k].numpy() - v.numpy()).max() <= \
-                    1e-4 * np.abs(v.numpy()).max(), (net, k)
-
-
 def _snapshot(pstate, net):
     return ({k: v.clone() for k, v in
              getattr(pstate.nets, net).state_dict().items()},
@@ -177,7 +142,7 @@ def test_steps_match_jax_train_step():
         jstate = jax.device_get(jstate)
         u = torch.from_numpy(np.array(jax.random.uniform(rng, (B,))))
         pstate, pm = psteps[use_vis](pstate, batch, swap_uniforms=u)
-        check_step(pstate, pm, jstate, jm, params)
+        check_step(pstate, pm, jstate, jm, params, nets=NETS)
         assert np.isfinite(pm["err"].item())
         assert _unchanged(pstate, "frame", frame)
         assert _unchanged(pstate, "motion", motion) == (not use_vis)

@@ -19,6 +19,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu.models import criterion as jc
 from avsep_tpu_torch.models import criterion as pc
 

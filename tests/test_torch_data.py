@@ -16,6 +16,7 @@ import sys
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu.config import Config as JConfig
 from avsep_tpu.data import dataset as jds
 from avsep_tpu.data import loader as jloader

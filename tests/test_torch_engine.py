@@ -23,6 +23,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu.config import Config as JConfig
 from avsep_tpu.engine import build_nets as jax_build_nets
 from avsep_tpu.engine import separate as jax_separate

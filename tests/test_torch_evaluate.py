@@ -31,6 +31,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu.data.loader import BatchLoader as JBatchLoader
 from avsep_tpu.evaluate import evaluate as jevaluate
 from avsep_tpu.evaluate import perm_correct as jperm_correct

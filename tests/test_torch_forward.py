@@ -44,6 +44,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu.config import Config as JConfig
 from avsep_tpu.engine import Nets as JNets
 from avsep_tpu.engine import forward as jax_forward

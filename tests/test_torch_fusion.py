@@ -15,6 +15,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu.models import fusion as jf
 from avsep_tpu_torch.models import fusion as pf
 

@@ -13,6 +13,7 @@ import pkgutil
 import subprocess
 import sys
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 import avsep_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

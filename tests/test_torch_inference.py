@@ -39,6 +39,7 @@ import torch
 
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 import avsep_tpu.inference as jinf
 import avsep_tpu.sop_main as jsop_main
 from avsep_tpu.data.dataset import read_manifest

@@ -18,6 +18,7 @@ import torch
 
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu.ops import pallas_kernels as jk
 from avsep_tpu.ops.stft import _reflect_pad as jax_reflect_pad
 from avsep_tpu_torch.ops import kernels as pk

@@ -57,6 +57,7 @@ import torch
 
 import jax
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu.config import parse_args as jparse_args
 from avsep_tpu.engine import build_nets as jbuild_nets
 from avsep_tpu.train import init_state as jinit_state

@@ -19,6 +19,7 @@ import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu.models import layers as jl
 from avsep_tpu_torch.models import layers as pl
 from avsep_tpu_torch.models.resnet import ResNet18Features

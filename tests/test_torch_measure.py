@@ -32,6 +32,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu.engine import separate as jax_separate
 from avsep_tpu.train import TrainState as JTrainState
 from avsep_tpu.train import make_optimizer, make_train_step as jmake_step

@@ -21,6 +21,7 @@ import torch
 
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu.ops import metrics as jm
 from avsep_tpu_torch.ops import metrics as pm
 from tests.test_metrics import _mix_signals, np_bss_eval

@@ -23,6 +23,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu.models.resnet import FrameEncoder as JFrameEncoder
 from avsep_tpu.models.resnet import TinyConvEncoder as JTinyConvEncoder
 from avsep_tpu.models.unet import AudioUnet as JAudioUnet

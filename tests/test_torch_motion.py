@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 import flax.linen as fnn
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu.models.motion import ResNet3dFastOnly as JFast
 from avsep_tpu.models.motion import motion_from_torch
 from avsep_tpu_torch.models import layers

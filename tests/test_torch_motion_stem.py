@@ -42,6 +42,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu_torch import engine, train
 from avsep_tpu_torch.config import Config
 from avsep_tpu_torch.models import layers
@@ -50,24 +51,10 @@ from avsep_tpu_torch.models.resnet import TinyConvEncoder
 from avsep_tpu_torch.models.unet import AudioUnet
 from avsep_tpu_torch.ops import kernels
 from avsep_tpu_torch.utils import spans
+from tests.test_torch_train_graph import cuda_device  # noqa: F401 (fixture)
 
 SHAPE = (2, 6, 20, 24, 3)
 K = 735
-
-
-@pytest.fixture
-def cuda_device():
-    """The first CUDA device, TF32 off and cuDNN deterministic inside the
-    test; skips the test where there is none (the CUDA kernels have no
-    interpret mode)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the CUDA kernels run only on the "
-                    "card")
-    before = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    engine.full_float32()
-    yield torch.device("cuda")
-    torch.backends.cudnn.deterministic = before
 
 
 def stem_conv(seed=0):
@@ -241,11 +228,12 @@ def test_tile_size_matches_the_cuda_source():
 
 
 def test_graph_replays_count_the_stem_launches():
-    # GraphedStep advances each counter of train.LAUNCHED by what its
-    # capture counted, so a replayed AV step counts its stem launches
-    assert {"motion_stem", "motion_stem_wgrad"} <= set(train.LAUNCHED)
-    for name in train.LAUNCHED:
-        assert isinstance(getattr(kernels, name).launches, int)
+    # GraphedStep advances each counter of kernels.launch_counts() by what
+    # its capture counted, so a replayed AV step counts its stem launches
+    counts = kernels.launch_counts()
+    assert {"motion_stem", "motion_stem_wgrad"} <= set(counts)
+    for name, n in counts.items():
+        assert isinstance(n, int) and getattr(kernels, name).launches == n
 
 
 # ------------------------------------------------------------- on a card

@@ -20,6 +20,7 @@ import wave
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu.data import native as jnative
 from avsep_tpu_torch.config import Config
 from avsep_tpu_torch.data import audio_io, native

@@ -13,10 +13,13 @@ batch of 4, 2 rows per rank, ``dist_data=replicate``:
 * one port process on the global batch: AV, AO, AV, AO, the AO swap drawn
   from a generator seeded alike (each rank keeps its rows of the global
   draw).  The ranks hold every tensor bit for bit alike.  Against the one
-  process: the losses at 1e-6 relative (read: at most 1.1e-7); each
+  process: ``err`` at 1e-6 relative (read: at most 1.1e-7), the match
+  loss, a difference of scores of order one, at 1e-6 absolute (read: bit
+  for bit with the reference at 8 threads, 1.19e-7 at one); each
   parameter and running statistic at 1e-5 of the tensor's largest value
   (read: at most 1.1e-6 and 8.6e-7); each momentum buffer at 2e-3 (read:
-  at most 6.6e-4, the U-Net's up2 conv after the first AV step).  That
+  at most 6.6e-4, the U-Net's up2 conv after the first AV step; 7.0e-4
+  with the reference at one thread).  That
   buffer is ill-conditioned, not mis-summed: in one process a relative
   perturbation of 1e-7 of the input audio moves it by the same 6.56e-4,
   and one process running the global-batch BatchNorm's own arithmetic
@@ -44,6 +47,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu.config import parse_args as jparse_args
 from avsep_tpu.data.loader import ShardDataset as JShardDataset
 from avsep_tpu.parallel.mesh import make_mesh as jmake_mesh
@@ -220,9 +224,12 @@ def test_two_ranks_match_one_process_on_the_global_batch(ranks):
     within ``MOMENTUM_REL``; the step and the groups' counts exactly."""
     got, refs, _, _ = ranks
     for mine, want in zip(got[0]["port"], refs["port"]):
+        # the match loss is a difference of per-row scores of order one
+        # (fusion._score_and_sort), so its float32 rounding is absolute
+        scale = {"err": abs(float(want["metrics"]["err"])), "match_loss": 1.0}
         for k in ("err", "match_loss"):
             assert abs(float(mine["metrics"][k] - want["metrics"][k])) <= \
-                LOSS_REL * abs(float(want["metrics"][k])), k
+                LOSS_REL * scale[k], k
         assert mine["state"]["step"] == want["state"]["step"]
         for g, s in want["state"]["opt_state"].items():
             assert mine["state"]["opt_state"][g]["count"] == s["count"], g

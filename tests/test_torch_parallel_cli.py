@@ -41,6 +41,7 @@ import socket
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu_torch.data.audio_io import read_wav
 from tests.torch_dist_worker import launch, wait_all
 

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu.models import torch_export as jexport
 from avsep_tpu.models.resnet import FrameEncoder as JFrameEncoder
 from avsep_tpu.models.synthesizer import Bias as JBias

@@ -19,25 +19,13 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu_torch import engine, train
 from avsep_tpu_torch.models.from_jax import load_from_jax
 from tests.test_torch_bf16 import nets_of, variables
 from tests.test_torch_forward import configs, make_batch
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this module's tests, restored after: the
-    tier-1 run puts six pytest workers on the machine's cores, and torch's
-    default of a thread per core then makes these small bf16 steps wait on
-    each other (on an 8-core CPU: 204 s of worker time for this module
-    under six workers, 11 s alone)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def port_nets(dtype):

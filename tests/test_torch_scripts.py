@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu.config import Config as JConfig
 from avsep_tpu.data import dataset as jds
 from avsep_tpu.data import video_transforms as jvt

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 import avsep_tpu.separate_cli as jcli
 from avsep_tpu.config import Config as JConfig
 from avsep_tpu.data.audio_io import write_wav as jwrite_wav

@@ -26,6 +26,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu.engine import separate as jax_separate
 from avsep_tpu.serve import separate_remote as jax_separate_remote
 from avsep_tpu.serve import server_stats as jax_server_stats

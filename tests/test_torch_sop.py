@@ -27,6 +27,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu.config import Config as JConfig
 from avsep_tpu.models.resnet import TinyConvEncoder as JTiny
 from avsep_tpu.models.sop import BasisUnet as JBasisUnet

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu_torch import engine, sop_main, train
 from avsep_tpu_torch.config import Config
 from avsep_tpu_torch.models.motion import ResNet3dFastOnly

@@ -20,6 +20,7 @@ import torch
 
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu_torch.ops import stft as ps
 
 # the module, not the function that avsep_tpu.ops re-exports under its name

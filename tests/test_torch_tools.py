@@ -60,6 +60,7 @@ import torch
 
 import jax
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu import sop_main as jsop_main
 from avsep_tpu import train as jtrain
 from avsep_tpu.checkpoint import save_checkpoint as jsave_checkpoint

@@ -35,6 +35,7 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu.config import Config as JConfig
 from avsep_tpu.config import parse_args as jparse_args
 from avsep_tpu.data.dataset import MusicMixDataset as JMusicMixDataset

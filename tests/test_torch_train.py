@@ -38,12 +38,14 @@ import jax
 import jax.numpy as jnp
 import optax
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu.train import TrainState as JTrainState
 from avsep_tpu.train import batch_scheduler as jbatch_scheduler
 from avsep_tpu.train import make_optimizer, make_train_step as jmake_step
 from avsep_tpu_torch import checkpoint, engine, train
 from avsep_tpu_torch.models.from_jax import state_dict_from_jax
 from tests.test_torch_forward import B, configs, make_batch, make_nets
+from tests.test_torch_sop import rel
 
 SEQ = (True, False, True, False, True)
 # large enough that the decay term is of the gradients' size
@@ -63,9 +65,16 @@ def _drop_masked(tree):
     return out
 
 
-def jax_groups(opt_state):
+def flat(tree):
+    """A JAX tree of nets -> {port name: array}."""
+    return {f"{net}.{k}": v.numpy() for net, sub in tree.items()
+            for k, v in state_dict_from_jax(sub, {}).items()}
+
+
+def jax_groups(opt_state, flat=flat):
     """The JAX optax state -> {group: (count, {port name: buffer})}, None
-    for a group without state (``fix_vis``)."""
+    for a group without state (``fix_vis``); ``flat`` names a tree's
+    leaves as the port does."""
     out = {}
     for g, masked in opt_state.inner_states.items():
         inner = masked.inner_state
@@ -73,16 +82,8 @@ def jax_groups(opt_state):
             out[g] = None
             continue
         trace, sched = inner[1]
-        tree = _drop_masked(trace.trace)
-        bufs = {f"{net}.{k}": v.numpy() for net, sub in tree.items()
-                for k, v in state_dict_from_jax(sub, {}).items()}
-        out[g] = (int(sched.count), bufs)
+        out[g] = (int(sched.count), flat(_drop_masked(trace.trace)))
     return out
-
-
-def flat(params):
-    return {f"{net}.{k}": v.numpy() for net in ("sound", "frame")
-            for k, v in state_dict_from_jax(params[net], {}).items()}
 
 
 def _close(got, ref, scale, tol=2e-3):
@@ -112,12 +113,17 @@ def run_steps(cfg_kw, seq=SEQ):
         yield use_vis, pstate, pm, jax.device_get(jstate), jm, before, params
 
 
-def check_step(pstate, pm, jstate, jm, params0):
-    assert abs(pm["err"].item() - float(jm["err"])) <= 1e-5 * abs(
-        float(jm["err"]))
+def check_step(pstate, pm, jstate, jm, params0, flat=flat,
+               nets=("sound", "frame")):
+    """A port step against the JAX package's from the same state, for
+    every family: ``err``, ``step``, each group's count and momentum
+    buffers, the parameters by their change since ``params0`` and the
+    running statistics of ``nets``; ``flat`` names a JAX tree's leaves as
+    the port does."""
+    assert rel(pm["err"].item(), float(jm["err"])) < 1e-5
     assert pstate.step == int(jstate.step)
     # momentum buffers and counts, per group
-    jg = jax_groups(jstate.opt_state)
+    jg = jax_groups(jstate.opt_state, flat)
     assert set(jg) == set(pstate.opt_state)
     tops = [np.abs(b).max() for g in jg.values() if g for b in g[1].values()]
     for g, want in jg.items():
@@ -134,21 +140,19 @@ def check_step(pstate, pm, jstate, jm, params0):
                           tol=1e-2), name
     # parameters, by their change since the start
     p0, pj = flat(params0), flat(jstate.params)
-    got = dict(train.named_parameters(pstate.nets))
     moves = {n: np.abs(pj[n] - p0[n]).max() for n in pj}
-    for name, p in got.items():
+    for name, p in train.named_parameters(pstate.nets):
         scale = max(moves[name], 1e-4 * max(moves.values()))
         assert np.abs(p.detach().numpy() - pj[name]).max() <= \
             2e-3 * scale + 1e-6 * np.abs(pj[name]).max(), name
     # running statistics
-    for net in ("sound", "frame"):
+    for net in nets:
         want = state_dict_from_jax(jstate.params[net],
                                    jstate.batch_stats[net])
         sd = getattr(pstate.nets, net).state_dict()
         for k, v in want.items():
             if k.endswith(("running_mean", "running_var")):
-                assert np.abs(sd[k].numpy() - v.numpy()).max() <= \
-                    1e-4 * np.abs(v.numpy()).max(), (net, k)
+                assert rel(sd[k].numpy(), v.numpy()) <= 1e-4, (net, k)
 
 
 def test_interleaved_steps_match_jax_train_step():

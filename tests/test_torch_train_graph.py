@@ -19,6 +19,7 @@ the port only, so the card's machine, which has no JAX, runs it:
 """
 
 import contextlib
+import functools
 import gc
 import itertools
 
@@ -27,14 +28,17 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from avsep_tpu_torch import engine, train
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
+from avsep_tpu_torch import engine, sop_main, train
 from avsep_tpu_torch.config import Config
 from avsep_tpu_torch.models import criterion, fusion
 from avsep_tpu_torch.models.resnet import TinyConvEncoder
 from avsep_tpu_torch.models.unet import AudioUnet
 from avsep_tpu_torch.ops import kernels
 from avsep_tpu_torch.parallel import distributed as pdist
+from avsep_tpu_torch.sop_engine import sop_forward
 from avsep_tpu_torch.utils import spans
+from tests.test_torch_spans import SOP
 
 SMALL = dict(arch_sound="unet5", arch_frame="tinyconv", num_channels=2,
              vis_channels=32, fusion_type="hidsep", att_type="sig",
@@ -83,22 +87,24 @@ def state_tensors(state):
     return out
 
 
-def run(cfg, make, kinds, data, device=CPU, state=None):
+def run(cfg, make, kinds, data, device=CPU, state=None, draws=True):
     """``kinds`` steps of ``make(cfg, nets, use_vis, device)`` on ``data``
     from the small nets: each step's loss, the state's tensors after each
     step (the first step's momentum is the gradient the optimizer got,
     with the weight decay) on the CPU, the recorder's counts, the swap
-    generator's state and the final train state."""
+    generator's state and the final train state.  The steps get the
+    generator if ``draws`` (SoP++'s forward takes none)."""
     if state is None:
         nets = small_nets(cfg, device)
         state = train.TrainState(0, nets, train.init_opt_state(cfg, nets))
     steps = {v: make(cfg, state.nets, v, device) for v in (True, False)}
     gen = torch.Generator().manual_seed(5)
+    draw = {"generator": gen} if draws else {}
     losses, after = [], []
     spans.drain()
     with spans.recording():
         for v, b in zip(kinds, data):
-            state, m = steps[v](state, b, generator=gen)
+            state, m = steps[v](state, b, **draw)
             losses.append(m["err"])
             after.append({k: t.detach().cpu().clone()
                           for k, t in state_tensors(state).items()})
@@ -249,15 +255,19 @@ def _emulated_capture(graph, capture_error_mode="global"):
         _EmulatedGraph.capturing = None
 
 
-def _emulated_step(cfg, use_vis, state, batch, u, gen):
+def _emulated_step(cfg, use_vis, forward, state, batch, u, gen):
+    args = (cfg, use_vis, forward, state, batch, u, gen)
     graph = _EmulatedGraph.capturing
     if graph is None:
-        return _EmulatedGraph.real_step(cfg, use_vis, state, batch, u, gen)
+        return _EmulatedGraph.real_step(*args)
     before = {k: t.detach().clone() for k, t in state_tensors(state).items()}
-    graph.state, graph.args = state, (cfg, use_vis, state, batch, u, gen)
+    graph.state, graph.args = state, args
     graph.counts = {g: s.count for g, s in state.opt_state.items()
                     if s is not None}
-    out = _EmulatedGraph.real_step(cfg, use_vis, state, batch, u, gen)
+    # a card's capture counts the launches it records: kernel i, i + 1
+    for i, k in enumerate(kernels.SOURCES):
+        getattr(kernels, k).launches += i + 1
+    out = _EmulatedGraph.real_step(*args)
     with torch.no_grad():
         for k, t in state_tensors(state).items():
             t.copy_(before[k])
@@ -265,15 +275,19 @@ def _emulated_step(cfg, use_vis, state, batch, u, gen):
     return out
 
 
+@pytest.mark.parametrize("family", ["avsep", "sop"])
 def test_graphed_step_follows_the_eager_sequence_with_an_emulated_graph(
-        monkeypatch):
+        monkeypatch, family):
     """``GraphedStep``'s keys, captures, replays and host bookkeeping with
-    an emulated graph on the CPU, across two ``lr_steps`` boundaries: the
-    losses, every tensor after every step, the counts, ``step`` and the
-    slot swap's generator follow the eager sequence bit for bit; each
-    kind captures on its second call with a key and recaptures past a
+    an emulated graph on the CPU, across two ``lr_steps`` boundaries, for
+    the step of ``engine.forward`` and for SoP++'s (whose forward takes no
+    draw): the losses, every tensor after every step, the counts, ``step``
+    and the slot swap's generator follow the eager sequence bit for bit;
+    each kind captures on its second call with a key and recaptures past a
     boundary; the metrics handed out are fresh tensors (the losses read
-    after the last step are each step's own)."""
+    after the last step are each step's own); every replay advances the
+    launch counter of every kernel of ``kernels.SOURCES`` by what its
+    capture counted."""
     monkeypatch.setattr(_EmulatedGraph, "real_step", train._step,
                         raising=False)
     monkeypatch.setattr(train, "_step", _emulated_step)
@@ -282,16 +296,32 @@ def test_graphed_step_follows_the_eager_sequence_with_an_emulated_graph(
                         lambda self, static, u: static.copy_(u))
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _EmulatedGraph)
     monkeypatch.setattr(torch.cuda, "graph", _emulated_capture)
-    cfg = Config(**dict(SMALL, lr_steps=(3, 5)))
+    launches0 = kernels.launch_counts()
+    for k, n in launches0.items():
+        monkeypatch.setattr(getattr(kernels, k), "launches", n)
+    sop = family == "sop"
+    cfg = Config(**dict(SOP if sop else SMALL, lr_steps=(3, 5)))
+    forward = (functools.partial(sop_forward, stage=3) if sop
+               else engine.forward)
     kinds = [True, False] * 8
     data = batches(cfg, len(kinds))
 
     def graphed(cfg_, nets, use_vis, device):
-        return train.GraphedStep(cfg_, use_vis, train.make_eager_train_step(
-            cfg_, nets, use_vis, device), CPU)
+        return train.GraphedStep(cfg_, use_vis, eager(
+            cfg_, nets, use_vis, device), CPU, forward)
 
-    got = run(cfg, graphed, kinds, data)
-    want = run(cfg, train.make_eager_train_step, kinds, data)
+    def eager(cfg_, nets, use_vis, device):
+        return train.make_eager_train_step(cfg_, nets, use_vis, device,
+                                           forward)
+
+    def state():
+        if not sop:
+            return None
+        return sop_main.init_sop_state(cfg, sop_main.build_sop_nets(
+            cfg, "cpu"), torch.Generator().manual_seed(0), "cpu")
+
+    got = run(cfg, graphed, kinds, data, state=state(), draws=not sop)
+    want = run(cfg, eager, kinds, data, state=state(), draws=not sop)
     assert largest_difference(got, want) == 0.0
     assert torch.equal(got["gen"], want["gen"])
     assert got["state"].step == want["state"].step == len(kinds)
@@ -303,6 +333,9 @@ def test_graphed_step_follows_the_eager_sequence_with_an_emulated_graph(
     # at 7; steps 9, 11, 13, 14 and 15 replay
     assert got["counts"]["train.graph_capture"] == 4
     assert got["counts"]["train.graph_replay"] == 5
+    # the emulated capture counts i + 1 launches of kernel i
+    assert {k: n - launches0[k] for k, n in kernels.launch_counts().items()
+            } == {k: 9 * (i + 1) for i, k in enumerate(kernels.SOURCES)}
 
 
 # ------------------------------------------------------------ on a card
@@ -310,11 +343,12 @@ def test_graphed_step_follows_the_eager_sequence_with_an_emulated_graph(
 
 @pytest.fixture
 def cuda_device():
-    """The first CUDA device, cuDNN deterministic inside the test; skips
-    the test where there is none (a CUDA graph needs a card)."""
+    """The first CUDA device, TF32 off and cuDNN deterministic inside the
+    test; skips the test where there is none (a CUDA graph and the CUDA
+    kernels run only on the card)."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: a CUDA graph runs only on the "
-                    "card")
+        pytest.skip("needs a CUDA device: CUDA graphs and kernels run only "
+                    "on the card")
     before = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     engine.full_float32()

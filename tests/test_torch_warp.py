@@ -12,6 +12,7 @@ import torch
 
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu.ops import prepare as jp
 from avsep_tpu.ops import warp as jw
 from avsep_tpu_torch.ops import prepare as pp
