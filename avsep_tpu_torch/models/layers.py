@@ -190,6 +190,19 @@ def running_stats_frozen():
         _FROZEN.on = before
 
 
+def batch_norm_train(x: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, eps: float):
+    """Train-mode normalization with the batch's own statistics over every
+    dimension but 1: ``(y, mean, biased var)``, the statistics without a
+    gradient.  One ``F.batch_norm`` call on zeroed float32 scratch buffers
+    with momentum 1 writes the batch mean and the unbiased variance there;
+    the biased one is that times ``(n - 1) / n``."""
+    batch = torch.zeros(2, x.shape[1], dtype=torch.float32, device=x.device)
+    y = F.batch_norm(x, batch[0], batch[1], weight, bias, True, 1.0, eps)
+    n = x.numel() // x.shape[1]
+    return y, batch[0], batch[1] * ((n - 1) / n)
+
+
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm with Flax ``nn.BatchNorm``'s training semantics, over the
     channels of dimension 1: NCHW (the U-Net, the ResNets) or NCDHW (the
@@ -204,13 +217,14 @@ class BatchNorm(nn.BatchNorm2d):
     ``nn.BatchNorm2d``'s; ``num_batches_tracked`` counts updates and is
     read by nothing.
 
-    The batch statistics come out of the normalizing call itself: it gets
-    zeroed scratch buffers and momentum 1, so it writes the batch mean and
-    the unbiased batch variance there, and the biased one is that times
-    ``(n - 1) / n``.  The scratch buffers are float32 whatever the input's
-    dtype, as are the parameters and running buffers: on a bfloat16 input
-    the statistics and the normalization are computed in float32, and the
-    result is returned in ``compute_dtype``.
+    The batch statistics come out of the normalizing call itself
+    (:func:`batch_norm_train`): it gets zeroed scratch buffers and momentum
+    1, so it writes the batch mean and the unbiased batch variance there,
+    and the biased one is that times ``(n - 1) / n``.  The scratch buffers
+    are float32 whatever the input's dtype, as are the parameters and
+    running buffers: on a bfloat16 input the statistics and the
+    normalization are computed in float32, and the result is returned in
+    ``compute_dtype``.
 
     Under a process group of more than one rank, train mode normalizes with
     the statistics of the global batch, as the JAX package's BatchNorm does
@@ -233,24 +247,26 @@ class BatchNorm(nn.BatchNorm2d):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps
                                 ).to(self.compute_dtype)
-        m = self.flax_momentum
         if world_size() > 1:
             y, mean, var = self._global_batch_norm(x)
-            var_alpha = 1.0 - m
         else:
-            batch = torch.zeros(2, x.shape[1], dtype=torch.float32,
-                                device=x.device)
-            y = F.batch_norm(x, batch[0], batch[1], self.weight, self.bias,
-                             True, 1.0, self.eps)
-            n = x.numel() // x.shape[1]
-            # the unbiased variance, made biased in the update
-            mean, var, var_alpha = batch[0], batch[1], (1.0 - m) * (n - 1) / n
-        if not getattr(_FROZEN, "on", False):
-            with torch.no_grad():
-                self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
-                self.running_var.mul_(m).add_(var, alpha=var_alpha)
-                self.num_batches_tracked.add_(1)
+            y, mean, var = batch_norm_train(x, self.weight, self.bias,
+                                            self.eps)
+        self.update_running(mean, var)
         return y.to(self.compute_dtype)
+
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Flax's update of the running buffers from a train-mode batch's
+        ``mean`` and *biased* ``var``, without a gradient; nothing under
+        :func:`running_stats_frozen`.  ``forward`` calls it, and so does
+        the motion net around ``kernels.motion_bn``."""
+        if getattr(_FROZEN, "on", False):
+            return
+        m = self.flax_momentum
+        with torch.no_grad():
+            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+            self.num_batches_tracked.add_(1)
 
     def _global_batch_norm(self, x: torch.Tensor):
         """Train-mode normalization with the global batch's statistics:

@@ -15,7 +15,9 @@ the JAX package's channels-last ``[B, T, H/32, W/32, 32 * base_channels]``.
 In bfloat16 at base 8 the stem is ``ops/kernels.motion_stem`` instead
 (:attr:`ResNet3dFastOnly.stem_kernel`), which reads the clips as they come,
 uint8 included, and normalizes them in its load; ``conv1`` keeps its
-weight, and the float32 net its ``nn.Conv3d``.
+weight, and the float32 net its ``nn.Conv3d``.  In bfloat16 train mode on
+one rank each BatchNorm, with the ReLU after it and a block's residual add,
+is ``ops/kernels.motion_bn`` (:func:`bn_act`).
 Submodules carry the JAX package's names (``conv1``, ``bn1``,
 ``layer{i}_{j}.conv{1,2,3}``, ``bn{1,2,3}``, ``downsample_conv``,
 ``downsample_bn``), so a JAX parameter path is a ``state_dict`` key
@@ -33,10 +35,35 @@ import torch.nn as nn
 from avsep_tpu_torch.models.layers import (
     BatchNorm, Conv3d, he_normal_init_, reset_batchnorm_)
 from avsep_tpu_torch.ops import kernels
+from avsep_tpu_torch.parallel.distributed import world_size
 
 
 def _bn(features: int, dtype: torch.dtype) -> BatchNorm:
     return BatchNorm(features, momentum=0.9, eps=1e-5, compute_dtype=dtype)
+
+
+def bn_kernel_applies(bn: BatchNorm) -> bool:
+    """Whether ``bn`` runs as ``kernels.motion_bn``: in bfloat16, in train
+    mode, on one rank.  Eval mode keeps ``F.batch_norm``, a process group
+    the global statistics, the float32 net its modules."""
+    return bn.compute_dtype == torch.bfloat16 and bn.training and \
+        world_size() == 1
+
+
+def bn_act(bn: BatchNorm, x: torch.Tensor, relu: bool = True,
+           residual=None) -> torch.Tensor:
+    """``bn(x)``, plus ``residual``, then the ReLU: one
+    ``kernels.motion_bn`` where :func:`bn_kernel_applies` (the running
+    buffers updated by ``bn.update_running``), else the modules' ops."""
+    if bn_kernel_applies(bn):
+        y, mean, var = kernels.motion_bn(x, bn.weight, bn.bias, bn.eps, relu,
+                                         residual)
+        bn.update_running(mean, var)
+        return y
+    y = bn(x)
+    if residual is not None:
+        y = y + residual
+    return torch.relu(y) if relu else y
 
 
 class Bottleneck3d(nn.Module):
@@ -67,13 +94,13 @@ class Bottleneck3d(nn.Module):
             self.downsample_bn = _bn(out, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = torch.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
+        y = bn_act(self.bn1, self.conv1(x))
+        y = self.conv3(bn_act(self.bn2, self.conv2(y)))
         identity = x
         if self.has_downsample:
-            identity = self.downsample_bn(self.downsample_conv(x))
-        return torch.relu(y + identity)
+            identity = bn_act(self.downsample_bn, self.downsample_conv(x),
+                              relu=False)
+        return bn_act(self.bn3, y, residual=identity)
 
 
 class ResNet3dFastOnly(nn.Module):
@@ -128,7 +155,7 @@ class ResNet3dFastOnly(nn.Module):
             y = kernels.motion_stem(clips, self.conv1.weight)
         else:
             y = self.conv1(clips.permute(0, 4, 1, 2, 3))
-        y = self.maxpool(torch.relu(self.bn1(y)))
+        y = self.maxpool(bn_act(self.bn1, y))
         for name in self.blocks:
             y = getattr(self, name)(y)
         return y.permute(0, 2, 3, 4, 1)

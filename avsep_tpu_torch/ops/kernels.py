@@ -16,15 +16,21 @@ Port of ``avsep_tpu/ops/pallas_kernels.py``:
   and ``avsep::motion_stem_wgrad``, the first with the second as its
   backward, so that a profiler links their kernels to a named op and to
   the autograd backward function of its sequence number.
+* :func:`motion_bn` and :func:`motion_bn_backward` (no TPU kernel: the JAX
+  package leaves BatchNorm to XLA): the motion net's train-mode BatchNorm
+  in bfloat16 on channels-last clips' activations, with the ReLU after it
+  and a bottleneck's residual add; source ``csrc/motion_bn.cu``.  The ops
+  ``avsep::motion_bn`` and ``avsep::motion_bn_backward``, as the stem's.
 
 Each wrapper checks its inputs and then dispatches on the tensor's device
 alone: a CPU tensor goes to the plain PyTorch version in this module, a CUDA
 tensor launches the kernel on the current stream or raises.  Each wrapper
 counts its kernel launches in a plain integer attribute
 (``frame_window.launches``, ``overlap_add_normalize.launches``,
-``motion_stem.launches``, ``motion_stem_wgrad.launches``; :func:`launch_counts`
-reads them all) so that a run can show that the main path went through the
-kernels.
+``motion_stem.launches``, ``motion_stem_wgrad.launches``,
+``motion_bn.launches``, ``motion_bn_backward.launches``, one a call;
+:func:`launch_counts` reads them all) so that a run can show that the main
+path went through the kernels.
 
 The sources are compiled at first use by ``nvcc`` (for ``sm_90a``) into one
 shared library per source, with a plain C interface, under
@@ -46,6 +52,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from avsep_tpu_torch.models.layers import batch_norm_train
 from avsep_tpu_torch.ops.imagenet import (
     IMAGENET_MEAN, IMAGENET_STD, UINT8_SCALE, normalize_frames)
 from avsep_tpu_torch.ops.stft import (
@@ -62,6 +69,8 @@ SOURCES = {
     "overlap_add_normalize": ("overlap_add.cu", "avsep_overlap_add_normalize"),
     "motion_stem": ("motion_stem.cu", "avsep_motion_stem"),
     "motion_stem_wgrad": ("motion_stem.cu", "avsep_motion_stem_wgrad"),
+    "motion_bn": ("motion_bn.cu", "avsep_motion_bn"),
+    "motion_bn_backward": ("motion_bn.cu", "avsep_motion_bn_backward"),
 }
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _I64, _F32 = ctypes.c_longlong, ctypes.c_float
@@ -78,6 +87,9 @@ ARGTYPES = {
     "motion_stem": [_PTR, _INT, _PTR, _PTR] + _CLIP_DIMS + [_PTR],
     "motion_stem_wgrad": [_PTR, _INT, _PTR, _PTR, _PTR] + _CLIP_DIMS
     + [_PTR],
+    "motion_bn": [_PTR] * 8 + [_I64, _INT, _INT, _INT, _F32, _INT, _PTR],
+    "motion_bn_backward": [_PTR] * 12
+    + [_I64, _INT, _INT, _INT, _F32, _INT, _PTR],
 }
 # dynamic shared memory of one block: what a launch gets without opting in,
 # and the most an H100 block can opt in to
@@ -485,3 +497,220 @@ def motion_stem_wgrad(clips: torch.Tensor, grad: torch.Tensor,
 
 
 motion_stem_wgrad.launches = 0
+
+
+# ---------------------------------------------------- motion net BatchNorm
+
+# csrc/motion_bn.cu: threads a block; the most blocks a shape launches
+# (two waves of the H100's 132 SMs at four resident blocks each; the
+# combine takes up to 5 x 256) and the fewest where a thread reads 4 rows
+_BN_THREADS = 256
+_BN_BLOCKS = 1056
+_BN_MIN_BLOCKS = 264
+_BN_ROWS_PER_THREAD = 4
+_BN_MAX_CHANNELS = 8 * _BN_THREADS
+
+
+def motion_bn_plan(rows: int, channels: int):
+    """``(rows_per_block, blocks)`` of the motion_bn kernels: a block
+    reads ``256 // (channels // 8)`` rows an iteration (a thread a 16-byte
+    group of 8 channels) and takes as many iterations as keep the blocks
+    at most :data:`_BN_BLOCKS`, and at least 4 where that leaves
+    :data:`_BN_MIN_BLOCKS` blocks (fewer, longer blocks spend less on
+    their trees and on the combine)."""
+    per_iter = _BN_THREADS // (channels // 8)
+    iters = max(1, -(-rows // (per_iter * _BN_BLOCKS)),
+                min(_BN_ROWS_PER_THREAD, rows // (per_iter * _BN_MIN_BLOCKS)))
+    per_block = per_iter * iters
+    return per_block, -(-rows // per_block)
+
+
+def motion_bn_plain(x: torch.Tensor, weight: torch.Tensor,
+                    bias: torch.Tensor, eps: float, relu: bool,
+                    residual=None):
+    """Plain PyTorch version of :func:`motion_bn`: ``layers.BatchNorm``'s
+    train-mode normalization on one rank (``layers.batch_norm_train``),
+    then the residual add and ``torch.relu``, as the motion net ran them
+    before the kernels."""
+    y, mean, var = batch_norm_train(x, weight, bias, eps)
+    y = y.to(x.dtype)
+    if residual is not None:
+        y = y + residual
+    return (torch.relu(y) if relu else y), mean, var
+
+
+def motion_bn_backward_plain(grad, x, weight, bias, mean, var, eps, relu,
+                             residual=None):
+    """Plain PyTorch version of :func:`motion_bn_backward`: autograd
+    through :func:`motion_bn_plain`, recomputed (``mean`` and ``var`` are
+    its own, so they are not read).  ``(dx, dweight, dbias, dresidual)``,
+    ``dresidual`` empty without a residual."""
+    leaves = [t.detach().requires_grad_() for t in (x, weight, bias)]
+    res = None if residual is None else \
+        residual.detach().requires_grad_()
+    with torch.enable_grad():
+        y, _, _ = motion_bn_plain(*leaves, eps, relu, res)
+        grads = torch.autograd.grad(
+            y, leaves + ([] if res is None else [res]), grad)
+    if res is None:
+        grads += (x.new_empty(0),)
+    return tuple(grads)
+
+
+def _bn_rows(x: torch.Tensor):
+    return x.numel() // x.shape[1], x.shape[1]
+
+
+def _check_bn_cuda(name: str, t: torch.Tensor) -> None:
+    if not t.is_contiguous(memory_format=torch.channels_last_3d):
+        raise ValueError(f"motion_bn: {name} must be channels-last-3d "
+                         f"(dense NDHWC), got strides {t.stride()}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"motion_bn: {name} must be 16-byte aligned")
+
+
+def _motion_bn_cuda(x, weight, bias, eps, relu, residual=None):
+    rows, C = _bn_rows(x)
+    for name, t in (("x", x), ("residual", residual)):
+        if t is not None:
+            _check_bn_cuda(name, t)
+    if C % 8 or C > _BN_MAX_CHANNELS:
+        raise ValueError(f"motion_bn kernel takes a multiple of 8 channels "
+                         f"up to {_BN_MAX_CHANNELS}, got {C}")
+    if x.numel() > _INT32_MAX:
+        raise ValueError(f"motion_bn kernel takes at most 2**31 - 1 "
+                         f"elements, got {x.numel()}")
+    per_block, blocks = motion_bn_plan(rows, C)
+    y = torch.empty_like(x)
+    mean = torch.empty(C, dtype=torch.float32, device=x.device)
+    var = torch.empty_like(mean)
+    partial = torch.empty(2 * C * blocks, dtype=torch.float32,
+                          device=x.device)
+    _launch("motion_bn", x.device, x.data_ptr(),
+            None if residual is None else residual.data_ptr(),
+            weight.contiguous().data_ptr(), bias.contiguous().data_ptr(),
+            y.data_ptr(), mean.data_ptr(), var.data_ptr(), partial.data_ptr(),
+            rows, C, per_block, blocks, eps, int(relu))
+    motion_bn.launches += 1
+    return y, mean, var
+
+
+def _motion_bn_backward_cuda(grad, x, weight, bias, mean, var, eps, relu,
+                             residual=None):
+    rows, C = _bn_rows(x)
+    if grad.dtype != x.dtype:
+        raise TypeError(f"motion_bn_backward: grad must be {x.dtype}, got "
+                        f"{grad.dtype}")
+    # autograd hands over whatever layout the next layer's backward made
+    grad = grad.contiguous(memory_format=torch.channels_last_3d)
+    per_block, blocks = motion_bn_plan(rows, C)
+    dx = torch.empty_like(x)
+    dres = x.new_empty(0) if residual is None else torch.empty_like(x)
+    dweight = torch.empty(C, dtype=torch.float32, device=x.device)
+    dbias = torch.empty_like(dweight)
+    partial = torch.empty(2 * C * blocks, dtype=torch.float32,
+                          device=x.device)
+    _launch("motion_bn_backward", x.device, grad.data_ptr(), x.data_ptr(),
+            None if residual is None else residual.data_ptr(),
+            weight.contiguous().data_ptr(), bias.contiguous().data_ptr(),
+            mean.data_ptr(), var.data_ptr(), dx.data_ptr(),
+            None if residual is None else dres.data_ptr(),
+            dweight.data_ptr(), dbias.data_ptr(), partial.data_ptr(), rows,
+            C, per_block, blocks, eps, int(relu))
+    motion_bn_backward.launches += 1
+    return dx, dweight, dbias, dres
+
+
+def _bn_setup(ctx, inputs, output) -> None:
+    x, weight, bias, eps, relu, residual = inputs
+    _, mean, var = output
+    ctx.mark_non_differentiable(mean, var)
+    ctx.eps, ctx.relu = eps, relu
+    ctx.save_for_backward(x, weight, bias, mean, var, residual)
+
+
+def _bn_backward(ctx, grad, _grad_mean, _grad_var):
+    x, weight, bias, mean, var, residual = ctx.saved_tensors
+    dx, dweight, dbias, dres = torch.ops.avsep.motion_bn_backward(
+        grad, x, weight, bias, mean, var, ctx.eps, ctx.relu, residual)
+    need = ctx.needs_input_grad
+    return (dx if need[0] else None, dweight if need[1] else None,
+            dbias if need[2] else None, None, None,
+            dres if need[5] else None)
+
+
+_LIB.define("motion_bn(Tensor x, Tensor weight, Tensor bias, float eps, "
+            "bool relu, Tensor? residual) -> (Tensor, Tensor, Tensor)")
+_LIB.define("motion_bn_backward(Tensor grad, Tensor x, Tensor weight, "
+            "Tensor bias, Tensor mean, Tensor var, float eps, bool relu, "
+            "Tensor? residual) -> (Tensor, Tensor, Tensor, Tensor)")
+_LIB.impl("motion_bn", motion_bn_plain, "CPU")
+_LIB.impl("motion_bn", _motion_bn_cuda, "CUDA")
+_LIB.impl("motion_bn_backward", motion_bn_backward_plain, "CPU")
+_LIB.impl("motion_bn_backward", _motion_bn_backward_cuda, "CUDA")
+torch.library.register_autograd("avsep::motion_bn", _bn_backward,
+                                setup_context=_bn_setup, lib=_LIB)
+
+
+def _check_bn(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+              residual) -> None:
+    if not isinstance(x, torch.Tensor) or x.dtype != torch.bfloat16 or \
+            x.dim() != 5:
+        raise TypeError("x must be a bfloat16 [B, C, T, H, W] tensor, got "
+                        f"{getattr(x, 'dtype', type(x))} "
+                        f"{tuple(getattr(x, 'shape', ()))}")
+    C = x.shape[1]
+    for name, t in (("weight", weight), ("bias", bias)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (C,):
+            raise ValueError(f"{name} must be float32 [{C}], got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if residual is not None and (residual.dtype != x.dtype
+                                 or residual.shape != x.shape):
+        raise ValueError(f"residual must be {x.dtype} {tuple(x.shape)}, got "
+                         f"{residual.dtype} {tuple(residual.shape)}")
+    devices = {t.device for t in (x, weight, bias, residual)
+               if t is not None}
+    if len(devices) != 1 or x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"motion_bn's tensors must lie on one CPU or CUDA "
+                         f"device, got {sorted(map(str, devices))}")
+    if x.numel() // C < 2:
+        raise ValueError("motion_bn needs more than one value per channel")
+
+
+def motion_bn(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+              eps: float, relu: bool, residual=None):
+    """The motion net's train-mode BatchNorm on one rank, then the residual
+    add and the ReLU: ``x`` ``[B, C, T, H, W]`` bfloat16, ``weight`` and
+    ``bias`` float32 ``[C]``, ``residual`` None or bfloat16 like ``x`` ->
+    ``(y, mean, biased_var)``, ``y`` bfloat16 like ``x`` and the batch
+    statistics float32 ``[C]`` (no gradient flows through them; the
+    running buffers are the caller's, ``layers.BatchNorm.update_running``).
+
+    The statistics over every dimension but C in float32; ``y`` is
+    ``bf16((x - mean) * weight * rsqrt(var + eps) + bias)``, then
+    ``bf16(y + residual)``, then ``relu``, where ``layers.BatchNorm``,
+    the add and ``torch.relu`` round.  CPU tensor: plain version, bit for
+    bit those ops.  CUDA tensor: the kernels of ``csrc/motion_bn.cu``, which
+    take ``x`` and ``residual`` channels-last-3d and C a multiple of 8, and
+    raise on anything else; the backward is :func:`motion_bn_backward`."""
+    _check_bn(x, weight, bias, residual)
+    return torch.ops.avsep.motion_bn(x, weight, bias, float(eps), bool(relu),
+                                     residual)
+
+
+motion_bn.launches = 0
+
+
+def motion_bn_backward(grad, x, weight, bias, mean, var, eps, relu,
+                       residual=None):
+    """The gradients of :func:`motion_bn` given ``y``'s gradient ``grad``
+    and the forward's inputs and statistics: ``(dx, dweight, dbias,
+    dresidual)`` (``dresidual`` empty without a residual).  On a card the
+    per-channel sums are taken in a fixed order, so two calls give the
+    same bits.  CPU tensor: plain version."""
+    _check_bn(x, weight, bias, residual)
+    return torch.ops.avsep.motion_bn_backward(
+        grad, x, weight, bias, mean, var, float(eps), bool(relu), residual)
+
+
+motion_bn_backward.launches = 0

@@ -37,6 +37,14 @@ script exits non-zero before printing any result.
    call and per AV step (two calls), and the bound.  ``--only
    motion_stem`` runs it alone, and counts no launches: the main paths
    below count the stem's.
+   motion_bn: the motion net's bfloat16 BatchNorm kernels (with the ReLU
+   and the residual add; forward and backward) against their plain version
+   on the card at each of the net's 53 BatchNorm calls at the clips cell's
+   shape (16 clips of 32 x 224 x 224), within the tolerances of
+   tests/test_torch_motion_bn.py; two calls bit for bit; the times per AV
+   step (2 x 53 calls) of the kernels, of their byte bound, of the plain
+   version and of ``F.batch_norm`` with its autograd backward
+   (``library_ms``).  ``--only motion_bn`` runs it alone.
 4. separate: the flagship configuration of bench.py (unet7,
    resnet18dilated-256, hidsep/sig fusion, log-frequency warp, binary
    masks, dft "matmul") at full width through ``engine.separate``, B = 16,
@@ -460,6 +468,22 @@ def time_ms(fn, flush: torch.Tensor, reps: int = 30,
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
+def graphed_ms(fn, flush: torch.Tensor) -> float:
+    """:func:`time_ms` of one replay of ``fn`` captured in a CUDA graph:
+    the card's time for its kernels and the gaps between them, without
+    the host's time to issue them (a graphed train step issues none)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, flush)
+
+
 def bound_ms(n_bytes: int, n_ops: int):
     """The least time for the work: bytes over the memory rate or float32
     operations over the float32 rate, whichever is larger."""
@@ -624,6 +648,10 @@ def check_ragged(dev, gen):
 
 # the motion stem at the clips cell: one source of an AV step's batch
 STEM_CLIPS = (16, 32, 224, 224)
+# the motion net's kernels, and its BatchNorm calls per clip batch
+MOTION_KERNELS = ("motion_stem", "motion_stem_wgrad", "motion_bn",
+                  "motion_bn_backward")
+MOTION_BNS = 53
 BF16_FLOPS_PER_S = 989e12
 
 
@@ -793,6 +821,139 @@ def check_motion_stem(dev, flush):
                  "net's stem)", max_abs_err=abs_err[1], ms=ms["wgrad_ms"],
                  plain_ms=ms["wgrad_plain_ms"], bound_ms=bounds["wgrad_ms"],
                  library_ms=ms["wgrad_library_ms"])]
+
+
+def motion_bn_bytes(n: int, relu: bool, res: bool):
+    """The bytes a ``motion_bn`` call and its backward must move for ``n``
+    elements (csrc/motion_bn.cu's note): statistics read x, apply reads x
+    (and the residual) and writes y; the backward reduce reads dy and x
+    (and the residual under the ReLU, for the mask), the elementwise pass
+    reads the same and writes dx (and the residual's gradient)."""
+    mask = 2 * (relu and res)
+    return (2 + 4 + 2 * res) * n, (4 + mask + 6 + mask + 2 * res) * n
+
+
+def check_motion_bn(dev, flush):
+    """``kernels.motion_bn`` and ``motion_bn_backward`` at every BatchNorm
+    call of the motion net at the clips cell (phase ``motion_bn``: one
+    source's 16 clips of 32 x 224 x 224, 53 calls, 16 distinct), each
+    against its plain version within the tolerances of
+    tests/test_torch_motion_bn.py, and two calls bit for bit; then the
+    times of each distinct call, summed per AV step (2 sources x 53 calls):
+    the kernels, their byte bound, the plain version (BatchNorm, the add
+    and the ReLU as the net ran them, forward; autograd through them,
+    backward) and ``F.batch_norm`` alone with its autograd backward
+    (``library_ms``), each a CUDA graph's replay (:func:`graphed_ms`), as
+    the graphed step runs them.  Returns the table's two rows, per AV
+    step."""
+    import torch.nn.functional as F
+
+    from tests.test_torch_motion_bn import (
+        activation, bn_module, bn_shapes, errors_over_tolerance,
+        output_grad)
+    B, T, H, W = STEM_CLIPS
+    calls = bn_shapes(B, T, H, W)
+    cases = {}
+    for _, shape, relu, res in calls:
+        cases[(shape, relu, res)] = cases.get((shape, relu, res), 0) + 1
+    per_av = {k: 0.0 for k in ("ms", "backward_ms", "plain_ms",
+                               "plain_backward_ms", "library_ms",
+                               "library_backward_ms", "bound_ms",
+                               "backward_bound_ms")}
+    rows, worst, repeats, flips = [], {}, True, 0
+    for i, ((shape, relu, res), n) in enumerate(sorted(cases.items())):
+        x = activation(shape, SEED + i, dev)
+        bn = bn_module(shape[1], SEED + i).to(dev)
+        w, b, eps = bn.weight, bn.bias, bn.eps
+        residual = activation(shape, SEED + i + 1, dev, 1.0) if res \
+            else None
+        grad = output_grad(x, torch.Generator(device=dev).manual_seed(i))
+        err, nflip, (y, mean, var), gb = errors_over_tolerance(
+            x, w, b, eps, relu, residual, grad)
+        flips += nflip
+        for k, (r, _) in err.items():
+            worst[k] = max(worst.get(k, 0.0), r)
+        with torch.no_grad():
+            again = kernels.motion_bn(x, w, b, eps, relu, residual)
+            again += kernels.motion_bn_backward(grad, x, w, b, mean, var,
+                                                eps, relu, residual)
+        repeats &= all(torch.equal(p, q) for p, q in
+                       zip((y, mean, var) + tuple(gb), again))
+        del y, gb, again
+        leaves = [t.detach().requires_grad_() for t in (x, w, b)]
+
+        def no_grad(fn):
+            def call():
+                with torch.no_grad():
+                    return fn()
+            return call
+
+        def with_backward(forward):
+            # autograd runs a backward on its forward's stream, so the
+            # graph holds both; the backward's time is the difference
+            def call():
+                with torch.enable_grad():
+                    return torch.autograd.grad(forward(), leaves, grad)
+            return call
+
+        def plain():
+            return kernels.motion_bn_plain(*leaves, eps, relu, residual)[0]
+
+        def library():
+            return F.batch_norm(leaves[0], None, None, leaves[1], leaves[2],
+                                True, 0.0, eps)
+
+        t = {"ms": no_grad(lambda: kernels.motion_bn(
+                 x, w, b, eps, relu, residual)),
+             "backward_ms": no_grad(lambda: kernels.motion_bn_backward(
+                 grad, x, w, b, mean, var, eps, relu, residual)),
+             "plain_ms": no_grad(plain),
+             "plain_backward_ms": with_backward(plain),
+             "library_ms": no_grad(library),
+             "library_backward_ms": with_backward(library)}
+        ms = {k: graphed_ms(fn, flush) for k, fn in t.items()}
+        for k in ("plain", "library"):
+            ms[f"{k}_backward_ms"] -= ms[f"{k}_ms"]
+        fwd_bytes, bwd_bytes = motion_bn_bytes(x.numel(), relu, res)
+        ms["bound_ms"] = fwd_bytes / HBM_BYTES_PER_S * 1e3
+        ms["backward_bound_ms"] = bwd_bytes / HBM_BYTES_PER_S * 1e3
+        for k in per_av:
+            per_av[k] += 2 * n * ms[k]
+        rows.append({"shape": list(shape), "relu": relu, "residual": res,
+                     "calls_per_source": n, **ms})
+        del x, residual, grad, leaves, mean, var
+        torch.cuda.empty_cache()
+    if any(r > 1.0 for r in worst.values()) or not repeats:
+        raise AssertionError(f"motion_bn disagrees with its plain version: "
+                             f"{worst} of the tolerances; repeats {repeats}")
+    if sum(cases.values()) != MOTION_BNS:
+        raise AssertionError(f"motion_bn: {sum(cases.values())} BatchNorm "
+                             f"calls per clip, expected {MOTION_BNS}")
+    total = per_av["ms"] + per_av["backward_ms"]
+    bound = per_av["bound_ms"] + per_av["backward_bound_ms"]
+    emit("motion_bn", route="cuda", source="avsep_tpu_torch/csrc/motion_bn.cu",
+         replaces="none (PyTorch's batch norm, add and relu kernels of the "
+         "motion net's bf16 train step)", max_err_over_tol=worst,
+         maskable_elements=flips, repeats=repeats,
+         calls_per_av_step=2 * sum(cases.values()), per_av_step=per_av,
+         kernels_ms=total, bound_ms=bound, share_of_bound=bound / total,
+         plain_total_ms=per_av["plain_ms"] + per_av["plain_backward_ms"],
+         library_total_ms=per_av["library_ms"]
+         + per_av["library_backward_ms"], shapes=rows,
+         nvidia_smi=nvidia_smi_line())
+    common = dict(route="cuda", source="avsep_tpu_torch/csrc/motion_bn.cu",
+                  bound_by="bytes", max_abs_err=None)
+    return [dict(common, name="motion_bn",
+                 replaces="none (the motion net's bf16 BatchNorm forward, "
+                 "its add and ReLU), ms per AV step", ms=per_av["ms"],
+                 plain_ms=per_av["plain_ms"], bound_ms=per_av["bound_ms"],
+                 library_ms=per_av["library_ms"]),
+            dict(common, name="motion_bn_backward",
+                 replaces="none (their backward), ms per AV step",
+                 ms=per_av["backward_ms"],
+                 plain_ms=per_av["plain_backward_ms"],
+                 bound_ms=per_av["backward_bound_ms"],
+                 library_ms=per_av["library_backward_ms"])]
 
 
 def flagship_inputs(gen, dev, n, batch):
@@ -1660,12 +1821,14 @@ read_launches = kernels.launch_counts
 
 
 def expect_launches(phase, got, frame_window, overlap_add, stem=0,
-                    stem_wgrad=0):
+                    stem_wgrad=0, bn=0):
     """``got`` equal to the given launches of each kernel: the motion
-    stem's pair launches only where a bfloat16 motion net runs."""
+    stem's pair launches only where a bfloat16 motion net runs, and its
+    BatchNorm's pair (``bn`` each) only where one trains."""
     want = {"frame_window": frame_window,
             "overlap_add_normalize": overlap_add, "motion_stem": stem,
-            "motion_stem_wgrad": stem_wgrad}
+            "motion_stem_wgrad": stem_wgrad, "motion_bn": bn,
+            "motion_bn_backward": bn}
     if got != want:
         raise AssertionError(f"{phase}: launches {got}, expected {want}")
 
@@ -2250,7 +2413,8 @@ def run_clipatt_train(dev, dtype="float32"):
     AV step leaves the frame net and group bit for bit, an AO step the
     frame and motion nets and groups; in bfloat16 the motion stem's pair
     twice per AV step (one per source) and never in an AO step, in float32
-    never; then one profiled AV step."""
+    never, and its BatchNorm pair 2 x 53 times per AV step, else never;
+    then one profiled AV step."""
     phase = "clipatt_train" if dtype == "float32" else "clipatt_train_bf16"
     bf16 = dtype != "float32"
     cfg = Config(**CLIPATT, dtype=dtype)
@@ -2271,7 +2435,7 @@ def run_clipatt_train(dev, dtype="float32"):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     times, per_step, frozen = {True: [], False: []}, [], []
-    stem_per_step, stem_want = [], []
+    motion_per_step, motion_want = [], []
     wall = 0.0
     for i in range(CLIPATT_WARMUP, CLIPATT_WARMUP + CLIPATT_STEPS):
         av = use_vis(i)
@@ -2286,9 +2450,9 @@ def run_clipatt_train(dev, dtype="float32"):
         times[av].append(1e3 * dt)
         n1 = read_launches()
         per_step.append(n1["frame_window"] - n0["frame_window"])
-        stem_per_step.append([n1[k] - n0[k] for k in ("motion_stem",
-                                                      "motion_stem_wgrad")])
-        stem_want.append([2 * (av and bf16)] * 2)
+        motion_per_step.append([n1[k] - n0[k] for k in MOTION_KERNELS])
+        motion_want.append([2 * (av and bf16)] * 2
+                         + [2 * MOTION_BNS * (av and bf16)] * 2)
         losses += [float(m["err"]), float(m["match_loss"])]
         frozen.append(unchanged(state, snap))
     launches = read_launches()
@@ -2297,10 +2461,10 @@ def run_clipatt_train(dev, dtype="float32"):
         raise AssertionError(f"{phase}: frame_window launches per step "
                              f"{per_step} (expected 2 each), "
                              f"{launches}")
-    if stem_per_step != stem_want:
-        raise AssertionError(f"{phase}: motion stem (forward, weight "
-                             f"gradient) launches per step {stem_per_step}, "
-                             f"expected {stem_want}")
+    if motion_per_step != motion_want:
+        raise AssertionError(f"{phase}: motion net launches per step "
+                             f"({', '.join(MOTION_KERNELS)}) "
+                             f"{motion_per_step}, expected {motion_want}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{phase}: non-finite loss: {losses}")
     if not all(frozen):
@@ -2318,7 +2482,9 @@ def run_clipatt_train(dev, dtype="float32"):
          av_step_ms=times[True], ao_step_ms=times[False],
          samples_per_s=B * CLIPATT_STEPS / wall, peak_mem_gib=peak,
          frame_window_launches_per_step=per_step,
-         motion_stem_launches_per_step=stem_per_step, launches=launches,
+         motion_launches_per_step=dict(zip(MOTION_KERNELS,
+                                           zip(*motion_per_step))),
+         launches=launches,
          losses=losses, frozen_nets_unchanged=frozen)
     av_step = steps[True]
     profile_calls(f"{phase}_profile", lambda i: av_step(
@@ -2517,7 +2683,8 @@ def cli_clipatt(decode):
     "Training Done!", finite losses, the route printed, one finite
     results.csv row per clip and branch, 2 launches per train step and
     3 + 1 per eval step, the motion stem's forward 2 per AV train or eval
-    step and its weight gradient 2 per AV train step, TF32 off."""
+    step and its weight gradient 2 per AV train step, the motion net's
+    BatchNorm pair 2 x 53 per AV train step and none in eval, TF32 off."""
     manifest = os.path.join("data", "mini", "train.csv")
     argv = ["--mode", "train"] + script_flags("train_MUSIC.sh") + [
         "--fusion_type", "CoLoc_ClipAtt", "--load_clips", "--frame_decode",
@@ -2554,7 +2721,8 @@ def cli_clipatt(decode):
                        range(1, CLI_CLIPATT_ITERS + 1)))
     expect_launches("cli_clipatt", launches,
                     2 * CLI_CLIPATT_ITERS + 3 * eval_steps, eval_steps,
-                    2 * av_iters + eval_steps, 2 * av_iters)
+                    2 * av_iters + eval_steps, 2 * av_iters,
+                    2 * MOTION_BNS * av_iters)
     emit("cli_clipatt", argv=argv, batch=cfg.batch_size, dtype=cfg.dtype,
          clip_len=cfg.clip_len, frame_decode=route[0],
          iterations=CLI_CLIPATT_ITERS, eval_steps=eval_steps, clips=n,
@@ -3811,7 +3979,7 @@ def measure_tools(dev):
                     <= want["frame_window"] + 2 * oom
                     and got["overlap_add_normalize"]
                     == want["overlap_add_normalize"]
-                    and not got["motion_stem"] + got["motion_stem_wgrad"]):
+                    and not sum(got[k] for k in MOTION_KERNELS)):
                 raise AssertionError(f"measure_tools {name}: launches {got}"
                                      f", expected {want} + up to {oom} "
                                      "steps")
@@ -3985,6 +4153,7 @@ def main() -> int:
             check_overlap_add(dev, gen, flush)]
     check_ragged(dev, gen)
     rows += check_motion_stem(dev, flush)
+    rows += check_motion_bn(dev, flush)
     del flush
 
     sep_launches, nets, flagship = run_flagship(dev, gen)
@@ -4076,13 +4245,15 @@ def main() -> int:
     return 0
 
 
-def motion_stem_only():
-    """The motion_stem phase alone; it runs no main path, so it counts no
-    launches."""
-    dev = torch.device(DEVICE)
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
-    check_motion_stem(dev, flush)
-    return {}, {}
+def kernel_phase_only(check):
+    """A kernel phase alone (motion_stem, motion_bn); it runs no main
+    path, so it counts no launches."""
+    def run():
+        dev = torch.device(DEVICE)
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+        check(dev, flush)
+        return {}, {}
+    return run
 
 
 def only(argv) -> int:
@@ -4091,17 +4262,20 @@ def only(argv) -> int:
     or more cards (its part (c)); ``--only proof_tools`` the same with the
     proof_tools phase (without the train phase's rates), ``--only
     measure_tools`` with the measure_tools phase, ``--only trace_tools``
-    with the trace_tools phase, ``--only motion_stem`` with the motion
-    stem's kernel phase; then the launches by path."""
+    with the trace_tools phase, ``--only motion_stem`` and ``--only
+    motion_bn`` with the motion net's kernel phases; then the launches by
+    path."""
     phases = {"cli_launch": cli_launch,
               "proof_tools": lambda: proof_tools(torch.device(DEVICE)),
               "measure_tools": lambda: measure_tools(torch.device(DEVICE)),
               "trace_tools": trace_tools,
-              "motion_stem": motion_stem_only}
+              "motion_stem": kernel_phase_only(check_motion_stem),
+              "motion_bn": kernel_phase_only(check_motion_bn)}
     if len(argv) != 1 or argv[0] not in phases or \
             not torch.cuda.is_available():
         print("chip_smoke --only: cli_launch, proof_tools, measure_tools, "
-              "trace_tools or motion_stem, on a GPU", file=sys.stderr)
+              "trace_tools, motion_stem or motion_bn, on a GPU",
+              file=sys.stderr)
         return 2
     engine.full_float32()
     emit("card", nvidia_smi=nvidia_smi_line(),

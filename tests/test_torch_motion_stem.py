@@ -353,22 +353,20 @@ CLIP_CFG = dict(arch_sound="unet5", arch_frame="tinyconv", num_channels=2,
                 dft="matmul")
 
 
-@pytest.mark.cuda
-def test_graphed_clip_steps_count_the_stem_on_cuda(cuda_device):
+def graphed_clip_steps(device, names):
     """bfloat16 clips steps, AV and AO in turn, from one state graphed and
-    eager: the losses and every tensor after every step within twice
-    eager's own spread, as the graph tests hold them; every AV step, eager,
-    captured or replayed, adds 2 to each stem counter (one forward and one
-    weight gradient per source), an AO step 0."""
+    eager: the largest difference of the graphed run from eager, twice
+    eager's own spread (the graph tests' limit), the replays, and per step
+    ``(use_vis, launches of each kernel of names)``."""
     from tests.test_torch_train_graph import largest_difference, run
     cfg = Config(**CLIP_CFG)
     kinds = [True, False] * 4
     rs = np.random.RandomState(0)
     data = [{"audios": torch.from_numpy((rs.randn(2, 2, cfg.audLen) * 0.05
-                                         ).astype(np.float32)).to(cuda_device),
+                                         ).astype(np.float32)).to(device),
              "clips": torch.from_numpy(rs.randint(
                  0, 256, (2, 2, 4, 64, 64, 3)).astype(np.uint8)).to(
-                 cuda_device)} for _ in kinds]
+                 device)} for _ in kinds]
 
     def make_nets(c, device):
         torch.manual_seed(0)
@@ -384,31 +382,40 @@ def test_graphed_clip_steps_count_the_stem_on_cuda(cuda_device):
     small_nets = graph_tests.small_nets
     graph_tests.small_nets = make_nets
     try:
-        ref = run(cfg, train.make_eager_train_step, kinds, data, cuda_device)
-        again = run(cfg, train.make_eager_train_step, kinds, data,
-                    cuda_device)
+        ref = run(cfg, train.make_eager_train_step, kinds, data, device)
+        again = run(cfg, train.make_eager_train_step, kinds, data, device)
         counts = []
 
         def counted(c, nets, use_vis, device):
             step = train.make_train_step(c, nets, use_vis, device)
 
             def call(state, batch, **kw):
-                n0 = (kernels.motion_stem.launches,
-                      kernels.motion_stem_wgrad.launches)
+                n0 = kernels.launch_counts()
                 out = step(state, batch, **kw)
-                counts.append((use_vis,
-                               kernels.motion_stem.launches - n0[0],
-                               kernels.motion_stem_wgrad.launches - n0[1]))
+                n1 = kernels.launch_counts()
+                counts.append((use_vis, tuple(n1[k] - n0[k] for k in names)))
                 return out
             return call
 
-        got = run(cfg, counted, kinds, data, cuda_device)
+        got = run(cfg, counted, kinds, data, device)
     finally:
         graph_tests.small_nets = small_nets
-    limit = 2 * largest_difference(ref, again)
-    diff = largest_difference(got, ref)
+    return (largest_difference(got, ref),
+            2 * largest_difference(ref, again),
+            got["counts"].get("train.graph_replay", 0), counts)
+
+
+@pytest.mark.cuda
+def test_graphed_clip_steps_count_the_stem_on_cuda(cuda_device):
+    """bfloat16 clips steps, AV and AO in turn, from one state graphed and
+    eager: the losses and every tensor after every step within twice
+    eager's own spread, as the graph tests hold them; every AV step, eager,
+    captured or replayed, adds 2 to each stem counter (one forward and one
+    weight gradient per source), an AO step 0."""
+    diff, limit, replays, counts = graphed_clip_steps(
+        cuda_device, ("motion_stem", "motion_stem_wgrad"))
     print(f"graphed clip steps against eager: {diff} (limit {limit}); "
-          f"replays {got['counts'].get('train.graph_replay')}")
+          f"replays {replays}")
     assert diff <= limit
-    assert got["counts"]["train.graph_replay"] >= 4
-    assert counts == [(v, 2 * v, 2 * v) for v in kinds]
+    assert replays >= 4
+    assert counts == [(v, (2 * v, 2 * v)) for v in [True, False] * 4]
