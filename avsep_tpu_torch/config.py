@@ -128,6 +128,11 @@ class Config:
     # 1.0 is the reference's behaviour
     att_temp: float = 1.0
     demo_mode: str = "vis"
+    # the motion net under --load_clips (models/motion.ARCH_MOTIONS):
+    # "slowfast_fast", the SlowFast fast pathway alone as the reference's
+    # build_motion runs it, or "slowfast_r50", both pathways with their
+    # lateral connections and a 3x3 fc to vis_channels
+    arch_motion: str = "slowfast_fast"
     # the nets' compute dtype (DTYPES): "float32", or "bfloat16" for the
     # convolutions and BatchNorm outputs with float32 parameters, statistics,
     # fusion, STFT and losses (engine.build_nets)

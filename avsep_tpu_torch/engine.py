@@ -145,7 +145,9 @@ def build_nets(cfg: Config, device=None) -> Nets:
         pool_type=cfg.img_pool, dtype=dtype)
     motion = None
     if cfg.load_clips:
-        motion = ModelBuilder.build_motion(dtype=dtype).to(dev).eval()
+        motion = ModelBuilder.build_motion(
+            cfg.arch_motion, dtype=dtype, fc_dim=cfg.vis_channels
+        ).to(dev).eval()
     return Nets(sound.to(dev).eval(), frame.to(dev).eval(), motion)
 
 
@@ -201,21 +203,33 @@ def _frame_features(nets: Nets, frames_n: torch.Tensor, cfg: Config,
 def _motion_features(nets: Nets, clips_n: torch.Tensor, cfg: Config,
                      remat: bool = False) -> torch.Tensor:
     """One source's clip ``[B, T, H, W, 3]`` -> the activated motion map
-    ``[B, h, w, C]``: the motion net, then the mean over time (the JAX
-    package's live motion branch, ``avsep_tpu/engine.py:178-202``).  The
-    net, the mean and the activation are the span ``train.motion``
-    (``clips`` the rows, ``frames`` ``clip_len``), which counts its rows
-    under ``motion.clips`` (``utils/spans.py``).  A net whose stem is the
-    kernel (``stem_kernel``) gets the clip as it comes and normalizes it
-    in the stem's load."""
+    ``[B, h, w, C]``: the motion net's pooled map (the fast pathway's mean
+    over time, the JAX package's live motion branch,
+    ``avsep_tpu/engine.py:178-202``; or SlowFast R50's two time means
+    through its ``fc``), then the activation.  They are the span
+    ``train.motion`` (``clips`` the rows, ``frames`` ``clip_len``), which
+    counts its rows under ``motion.clips`` and SlowFast R50's slow frames
+    under ``motion.slow_frames`` (``utils/spans.py``).  A net whose stem is
+    the kernel (``stem_kernel``) gets the clip as it comes and normalizes
+    it in the stem's load."""
     if not nets.motion.stem_kernel:
         clips_n = normalize_frames(clips_n)
     with spans.span("train.motion", clips=clips_n.shape[0],
                     frames=cfg.clip_len):
         spans.count("motion.clips", clips_n.shape[0])
-        feats = _call(nets.motion, remat, clips_n)
-        return activate(torch.mean(feats, dim=1), cfg.img_activation,
-                        upcast=False)
+        slow = motion_slow_frames(nets.motion, clips_n.shape[0],
+                                  clips_n.shape[1])
+        if slow:
+            spans.count("motion.slow_frames", slow)
+        feats = _call(nets.motion.pooled_map, remat, clips_n)
+        return activate(feats, cfg.img_activation, upcast=False)
+
+
+def motion_slow_frames(net, clips: int, clip_len: int) -> int:
+    """The frames the motion ``net``'s slow pathway reads from ``clips``
+    clips of ``clip_len`` frames; 0 for a net without one."""
+    slow = getattr(net, "slow_path", None)
+    return 0 if slow is None else clips * slow.frames(clip_len)
 
 
 def motion_clips(cfg: Config, use_vis: bool, batch) -> int:
@@ -226,6 +240,22 @@ def motion_clips(cfg: Config, use_vis: bool, batch) -> int:
     if not (use_vis and cfg.fusion_type == "CoLoc_ClipAtt"):
         return 0
     return batch["clips"].shape[0] * cfg.num_mix
+
+
+def motion_counts(cfg: Config, use_vis: bool, batch, net
+                  ) -> Dict[str, int]:
+    """What a step counts in the span recorder for its motion ``net``: the
+    clips (:func:`motion_clips`) under ``motion.clips`` and the slow
+    pathway's frames (:func:`motion_slow_frames`) under
+    ``motion.slow_frames``, the counters that are not 0."""
+    clips = motion_clips(cfg, use_vis, batch)
+    if not clips:
+        return {}
+    out = {"motion.clips": clips}
+    slow = motion_slow_frames(net, clips, batch["clips"].shape[2])
+    if slow:
+        out["motion.slow_frames"] = slow
+    return out
 
 
 def _sound_forward(nets: Nets, log_mag: torch.Tensor,

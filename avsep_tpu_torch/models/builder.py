@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from avsep_tpu_torch.models.motion import ResNet3dFastOnly
+from avsep_tpu_torch.models.motion import (
+    ARCH_MOTIONS, ResNet3dFastOnly, ResNet3dSlowFast)
 from avsep_tpu_torch.models.resnet import FrameEncoder, TinyConvEncoder
 from avsep_tpu_torch.models.unet import AudioUnet
 
@@ -79,7 +80,15 @@ class ModelBuilder:
         raise ValueError("Architecture undefined!")
 
     @staticmethod
-    def build_motion(dtype: torch.dtype = torch.float32) -> ResNet3dFastOnly:
-        """The SlowFast fast pathway at base 8, ``[3, 4, 6, 3]``
-        (reference models/__init__.py:94-118)."""
-        return ResNet3dFastOnly(dtype=dtype)
+    def build_motion(arch: str = "slowfast_fast",
+                     dtype: torch.dtype = torch.float32, fc_dim: int = 256):
+        """``slowfast_fast``: the SlowFast fast pathway at base 8, ``[3, 4,
+        6, 3]`` (reference models/__init__.py:94-118), whose 256 channels
+        are the map; ``slowfast_r50``: both pathways with their laterals,
+        projected to ``fc_dim`` channels."""
+        if arch == "slowfast_fast":
+            return ResNet3dFastOnly(dtype=dtype)
+        if arch == "slowfast_r50":
+            return ResNet3dSlowFast(fc_dim=fc_dim, dtype=dtype)
+        raise ValueError(f"Architecture undefined! --arch_motion {arch!r}: "
+                         f"one of {ARCH_MOTIONS}")

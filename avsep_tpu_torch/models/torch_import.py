@@ -19,7 +19,11 @@ conversion only renames keys onto the port's module names:
   ``layer{i}.{j}.downsample.conv`` / ``.bn``), its keys raw
   (``backbone.fast_path.``), stripped of ``backbone.`` (``fast_path.``)
   or bare; ``cls_head`` and ``slow_path`` are dropped (reference
-  models/__init__.py:114-117).
+  models/__init__.py:114-117).  For ``--arch_motion slowfast_r50`` the
+  ``slow_path`` is kept (the same names, plus ``conv1_lateral.conv`` and
+  ``layer{1,2,3}_lateral.conv``) and both pathways land under
+  ``fast_path.`` and ``slow_path.``; the projection ``fc``, which no
+  mmaction checkpoint has, is taken where the dict holds one.
 * SoP++ synthesizer (``models/synthesizer_net.py:6-70``): ``scale`` (for
   ``InnerProd``) and ``bias`` under their own names.  The SoP++ basis
   U-Net (``SoP++/audio_net.py``) has the U-Net's keys.
@@ -107,33 +111,83 @@ def resnet_state_dict_from_torch(sd: Mapping, with_fc: bool = True
     return out
 
 
-def motion_state_dict_from_torch(sd: Mapping) -> Dict[str, torch.Tensor]:
-    """An mmaction fast-pathway ``state_dict``, in any of its three key
-    layouts, -> the port's
-    :class:`~avsep_tpu_torch.models.motion.ResNet3dFastOnly` keys (the
-    JAX package's ``motion_from_torch``)."""
-    norm = {}
-    for k, v in sd.items():
-        if "cls_head" in k or "slow_path" in k:
-            continue
-        for prefix in ("backbone.", "fast_path."):
-            if k.startswith(prefix):
-                k = k[len(prefix):]
-        norm[k] = v
-    out: Dict[str, torch.Tensor] = {"conv1.weight": norm["conv1.conv.weight"]}
-    _bn(out, "bn1", norm, "conv1.bn")
-    for li, n_blocks in enumerate((3, 4, 6, 3)):
+def _pathway(out: Dict, dst: str, sd: Mapping, blocks) -> None:
+    """One mmaction ResNet3d pathway's stem and stages from ``sd`` (keys
+    without the pathway's prefix) into ``out`` under ``dst``."""
+    out[dst + "conv1.weight"] = sd["conv1.conv.weight"]
+    _bn(out, dst + "bn1", sd, "conv1.bn")
+    for li, n_blocks in enumerate(blocks):
         for bi in range(n_blocks):
-            src, dst = f"layer{li + 1}.{bi}", f"layer{li + 1}_{bi}"
+            src, to = f"layer{li + 1}.{bi}", f"{dst}layer{li + 1}_{bi}"
             for ci in (1, 2, 3):
-                out[f"{dst}.conv{ci}.weight"] = norm[
+                out[f"{to}.conv{ci}.weight"] = sd[
                     f"{src}.conv{ci}.conv.weight"]
-                _bn(out, f"{dst}.bn{ci}", norm, f"{src}.conv{ci}.bn")
-            if f"{src}.downsample.conv.weight" in norm:
-                out[f"{dst}.downsample_conv.weight"] = norm[
+                _bn(out, f"{to}.bn{ci}", sd, f"{src}.conv{ci}.bn")
+            if f"{src}.downsample.conv.weight" in sd:
+                out[f"{to}.downsample_conv.weight"] = sd[
                     f"{src}.downsample.conv.weight"]
-                _bn(out, f"{dst}.downsample_bn", norm,
-                    f"{src}.downsample.bn")
+                _bn(out, f"{to}.downsample_bn", sd, f"{src}.downsample.bn")
+
+
+def motion_state_dict_from_torch(sd: Mapping, arch: str = "slowfast_fast"
+                                 ) -> Dict[str, torch.Tensor]:
+    """An mmaction SlowFast ``state_dict``, in any of its three key
+    layouts, -> the port's motion net's keys: for ``slowfast_fast`` the
+    fast pathway alone, as
+    :class:`~avsep_tpu_torch.models.motion.ResNet3dFastOnly` names it (the
+    JAX package's ``motion_from_torch``); for ``slowfast_r50`` both
+    pathways with the laterals, as
+    :class:`~avsep_tpu_torch.models.motion.ResNet3dSlowFast` names them,
+    and its ``fc`` where ``sd`` has one."""
+    if arch not in ("slowfast_fast", "slowfast_r50"):
+        raise ValueError(f"--arch_motion {arch!r}: slowfast_fast or "
+                         "slowfast_r50")
+    # keys by pathway, without ``backbone.`` and the pathway's prefix; a
+    # fast-only dict may come bare
+    paths: Dict[str, Dict] = {"fast_path.": {}, "slow_path.": {}, "": {}}
+    for k, v in sd.items():
+        if "cls_head" in k:
+            continue
+        if k.startswith("backbone."):
+            k = k[len("backbone."):]
+        pre = next(p for p in paths if k.startswith(p))
+        paths[pre][k[len(pre):]] = v
+    blocks = (3, 4, 6, 3)
+    out: Dict[str, torch.Tensor] = {}
+    if arch == "slowfast_fast":
+        _pathway(out, "", paths["fast_path."] or paths[""], blocks)
+        return out
+    _pathway(out, "fast_path.", paths["fast_path."], blocks)
+    slow = paths["slow_path."]
+    _pathway(out, "slow_path.", slow, blocks)
+    for name in ("conv1_lateral", "layer1_lateral", "layer2_lateral",
+                 "layer3_lateral"):
+        out[f"slow_path.{name}.weight"] = slow[f"{name}.conv.weight"]
+    for k in ("fc.weight", "fc.bias"):
+        if k in paths[""]:
+            out[k] = paths[""][k]
+    return out
+    if arch != "slowfast_r50":
+        raise ValueError(f"--arch_motion {arch!r}: slowfast_fast or "
+                         "slowfast_r50")
+    paths: Dict[str, Dict] = {"fast_path.": {}, "slow_path.": {}, "": {}}
+    for k, v in sd.items():
+        if "cls_head" in k:
+            continue
+        if k.startswith("backbone."):
+            k = k[len("backbone."):]
+        pre = next(p for p in paths if k.startswith(p))
+        paths[pre][k[len(pre):]] = v
+    out = {}
+    _pathway(out, "fast_path.", paths["fast_path."], blocks)
+    slow = paths["slow_path."]
+    _pathway(out, "slow_path.", slow, blocks)
+    for name in ("conv1_lateral", "layer1_lateral", "layer2_lateral",
+                 "layer3_lateral"):
+        out[f"slow_path.{name}.weight"] = slow[f"{name}.conv.weight"]
+    for k in ("fc.weight", "fc.bias"):
+        if k in paths[""]:
+            out[k] = paths[""][k]
     return out
 
 

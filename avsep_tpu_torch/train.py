@@ -355,7 +355,7 @@ class _Graph:
     """One captured step: its key, the graph, its static inputs (the batch
     and, for an AO step, the slot swap's uniforms), its static metrics, the
     groups it advances, the kernel launches it holds and what it counts
-    in the span recorder (``motion.clips``)."""
+    in the span recorder (``motion.clips``, ``motion.slow_frames``)."""
     key: tuple
     graph: "torch.cuda.CUDAGraph"
     batch: Dict[str, torch.Tensor]
@@ -397,9 +397,10 @@ class GraphedStep:
     ``train.graph_capture`` or ``train.graph_replay``; the inner spans are
     recorded at the capture only, and a replay counts again inside its
     ``train.step`` the clips the captured step ran through the motion net
-    (``motion.clips``, :func:`engine.motion_clips` of its static batch:
-    the recorder may be off at the capture).  The graphs and their pools
-    are this object's: dropping it frees them."""
+    and the slow pathway's frames (``motion.clips``,
+    ``motion.slow_frames``: :func:`engine.motion_counts` of its static
+    batch, for the recorder may be off at the capture).  The graphs and
+    their pools are this object's: dropping it frees them."""
 
     def __init__(self, cfg: Config, use_vis: bool, eager: Callable,
                  device: torch.device, forward: Callable = engine.forward):
@@ -482,11 +483,11 @@ class GraphedStep:
                 state.step = step0
                 raise
             graph.replay()
-        clips = engine.motion_clips(self.cfg, self.use_vis, static)
         self.graph = _Graph(
             key, graph, static, static_u, metrics, groups,
             {k: n - launches0[k] for k, n in kernels.launch_counts().items()},
-            {"motion.clips": clips} if clips else {})
+            engine.motion_counts(self.cfg, self.use_vis, static,
+                                 getattr(state.nets, "motion", None)))
         return state, {k: v.clone() for k, v in metrics.items()}
 
     def _replay(self, state: TrainState, batch, swap_uniforms,

@@ -38,6 +38,14 @@ The train step's names, which the benchmark's readers key on:
                        the rows, ``frames`` ``clip_len``)
 ``motion.clips``       counter: the clips through the motion net (also
                        counted by a replayed step)
+``motion.slow``        SlowFast R50 (``--arch_motion slowfast_r50``): the
+                       slow pathway's stem, and each of its stages, inside
+                       ``train.motion``
+``motion.lateral``     SlowFast R50: each lateral convolution with its
+                       concatenation onto the slow pathway, inside
+                       ``train.motion``
+``motion.slow_frames`` counter: SlowFast R50's slow frames, every 8th of
+                       each clip (also counted by a replayed step)
 ``train.backward``,    the rest of the step, inside ``train.step``
 ``train.grad_mean``,
 ``train.update``,

@@ -45,6 +45,16 @@ script exits non-zero before printing any result.
    step (2 x 53 calls) of the kernels, of their byte bound, of the plain
    version and of ``F.batch_norm`` with its autograd backward
    (``library_ms``).  ``--only motion_bn`` runs it alone.
+   motion_bn_slowfast: the same at SlowFast R50's 106 BatchNorm calls (the
+   slow pathway's 64 to 2048 channels on 4 frames beside the fast
+   pathway's), 2 x 106 per AV step.
+   slowfast_pathways: SlowFast R50 in train mode on 16 clips of 32 x 224 x
+   224 against benchmark/reference/slowfast.py in float32, per pathway
+   (slow map, fast map, the fc's pooled map): the float32 net within
+   PATHWAY_TOL of the reference's norm; a zeroed last lateral and slow
+   frames taken from frame 1 each read above it on the slow and pooled
+   maps and within it on the fast map; the bfloat16 net read beside the
+   reference's own bfloat16.
 4. separate: the flagship configuration of bench.py (unet7,
    resnet18dilated-256, hidsep/sig fusion, log-frequency warp, binary
    masks, dft "matmul") at full width through ``engine.separate``, B = 16,
@@ -163,6 +173,12 @@ script exits non-zero before printing any result.
    motion nets and groups; the motion stem's pair twice per AV step in
    bfloat16 and never in an AO step or in float32; one profiled AV step
    each, with the 3-D convolutions' share of the device time.
+   slowfast_train_bf16: clipatt_train_bf16 with ``--arch_motion
+   slowfast_r50`` (SlowFast R50, both pathways and their laterals): the
+   stem's pair twice and the BatchNorm pair 2 x 106 times per AV step,
+   never per AO step; each slow stage's input channels-last-3d and dense.
+   ``python3 chip_smoke.py --only slowfast_train_bf16`` runs it alone,
+   after motion_bn_slowfast and slowfast_pathways (phase 3).
    clipatt_eval: AV and AO eval steps with clips (eval_MUSIC.sh +
    CoLoc_ClipAtt, B = 16, float32): ms per step, 3 + 1 launches per step,
    no stem launch.
@@ -833,26 +849,33 @@ def motion_bn_bytes(n: int, relu: bool, res: bool):
     return (2 + 4 + 2 * res) * n, (4 + mask + 6 + mask + 2 * res) * n
 
 
-def check_motion_bn(dev, flush):
+def check_motion_bn(dev, flush, slowfast: bool = False):
     """``kernels.motion_bn`` and ``motion_bn_backward`` at every BatchNorm
     call of the motion net at the clips cell (phase ``motion_bn``: one
-    source's 16 clips of 32 x 224 x 224, 53 calls, 16 distinct), each
-    against its plain version within the tolerances of
+    source's 16 clips of 32 x 224 x 224, 53 calls, 16 distinct; with
+    ``slowfast``, phase ``motion_bn_slowfast``: SlowFast R50's 106 calls,
+    the slow pathway's 64 to 2048 channels on 4 frames beside the fast
+    pathway's), each against its plain version within the tolerances of
     tests/test_torch_motion_bn.py, and two calls bit for bit; then the
-    times of each distinct call, summed per AV step (2 sources x 53 calls):
-    the kernels, their byte bound, the plain version (BatchNorm, the add
-    and the ReLU as the net ran them, forward; autograd through them,
-    backward) and ``F.batch_norm`` alone with its autograd backward
+    times of each distinct call, summed per AV step (2 sources x 53 or 106
+    calls): the kernels, their byte bound, the plain version (BatchNorm,
+    the add and the ReLU as the net ran them, forward; autograd through
+    them, backward) and ``F.batch_norm`` alone with its autograd backward
     (``library_ms``), each a CUDA graph's replay (:func:`graphed_ms`), as
     the graphed step runs them.  Returns the table's two rows, per AV
     step."""
     import torch.nn.functional as F
 
+    from avsep_tpu_torch.models.motion import (
+        ResNet3dFastOnly, ResNet3dSlowFast)
     from tests.test_torch_motion_bn import (
         activation, bn_module, bn_shapes, errors_over_tolerance,
         output_grad)
+    phase = "motion_bn_slowfast" if slowfast else "motion_bn"
+    norms = MOTION_BNS * (2 if slowfast else 1)
     B, T, H, W = STEM_CLIPS
-    calls = bn_shapes(B, T, H, W)
+    calls = bn_shapes(B, T, H, W,
+                      ResNet3dSlowFast if slowfast else ResNet3dFastOnly)
     cases = {}
     for _, shape, relu, res in calls:
         cases[(shape, relu, res)] = cases.get((shape, relu, res), 0) + 1
@@ -924,14 +947,15 @@ def check_motion_bn(dev, flush):
         del x, residual, grad, leaves, mean, var
         torch.cuda.empty_cache()
     if any(r > 1.0 for r in worst.values()) or not repeats:
-        raise AssertionError(f"motion_bn disagrees with its plain version: "
-                             f"{worst} of the tolerances; repeats {repeats}")
-    if sum(cases.values()) != MOTION_BNS:
-        raise AssertionError(f"motion_bn: {sum(cases.values())} BatchNorm "
-                             f"calls per clip, expected {MOTION_BNS}")
+        raise AssertionError(f"{phase}: motion_bn disagrees with its plain "
+                             f"version: {worst} of the tolerances; repeats "
+                             f"{repeats}")
+    if sum(cases.values()) != norms:
+        raise AssertionError(f"{phase}: {sum(cases.values())} BatchNorm "
+                             f"calls per clip, expected {norms}")
     total = per_av["ms"] + per_av["backward_ms"]
     bound = per_av["bound_ms"] + per_av["backward_bound_ms"]
-    emit("motion_bn", route="cuda", source="avsep_tpu_torch/csrc/motion_bn.cu",
+    emit(phase, route="cuda", source="avsep_tpu_torch/csrc/motion_bn.cu",
          replaces="none (PyTorch's batch norm, add and relu kernels of the "
          "motion net's bf16 train step)", max_err_over_tol=worst,
          maskable_elements=flips, repeats=repeats,
@@ -954,6 +978,99 @@ def check_motion_bn(dev, flush):
                  plain_ms=per_av["plain_backward_ms"],
                  bound_ms=per_av["backward_bound_ms"],
                  library_ms=per_av["library_backward_ms"])]
+
+
+# SlowFast R50 in float32 against the plain reference in float32: the norm
+# of each map's difference over the reference's norm may reach this (the
+# sound net's readings and those of a faulty slow pathway: PERF.md)
+PATHWAY_TOL = 1e-2
+
+
+def reference_maps(clips, w, compute: str):
+    """benchmark/reference/slowfast.py in ``compute`` with TF32 off on
+    uint8 ``clips`` and weights ``w`` (train-mode BatchNorm): the slow map
+    ``[B, 2048, T/8, 7, 7]``, the fast map ``[B, 256, T, 7, 7]`` and the
+    pooled map, the ``fc`` of their time means after the ReLU."""
+    from benchmark.reference import nets as rnets
+    from benchmark.reference import slowfast as rslowfast
+    P = rnets.Precision(compute)
+    with torch.no_grad(), rnets.tf32(False):
+        maps = rslowfast.pathways(rnets.normalize_frames(clips), w, P, True,
+                                  pre="")
+        return maps + (rslowfast.slowfast_map(clips, w, P, True, pre=""),)
+
+
+def port_maps(net, clips):
+    """SlowFast R50 ``net`` (train mode) on uint8 ``clips``, TF32 off: the
+    maps of :func:`reference_maps`."""
+    from benchmark.reference import nets as rnets
+    x = clips if net.stem_kernel else engine.normalize_frames(clips)
+    with torch.no_grad(), rnets.tf32(False):
+        return net(x) + (torch.relu(net.pooled_map(x)),)
+
+
+def pathway_errors(got, want):
+    """Per map (``slow``, ``fast``, ``pooled``): the norm of the difference
+    over the norm of ``want``."""
+    return {k: float(torch.linalg.vector_norm(g.float() - r.float())
+                     / torch.linalg.vector_norm(r.float()))
+            for k, g, r in zip(("slow", "fast", "pooled"), got, want)}
+
+
+def check_slowfast_pathways(dev, shape=STEM_CLIPS):
+    """Phase ``slowfast_pathways``: SlowFast R50 in train mode on one
+    source's 16 seeded clips of 32 x 224 x 224 against the plain reference
+    in float32, per pathway (:func:`pathway_errors`).  The float32 net
+    holds each map within PATHWAY_TOL; with a fault of the slow pathway put
+    into it, the last lateral's weight zeroed or the slow frames taken from
+    frame 1 on, the slow map and the pooled map read above PATHWAY_TOL and
+    the fast map stays within.  The bfloat16 net (``motion_stem``,
+    ``motion_bn``) on the same weights is read beside the reference's own
+    bfloat16: rounding grows through the 50 train-mode layers alike in
+    both, so their readings, not a tolerance, say whether it keeps the
+    reference's precision.  Returns the readings."""
+    from avsep_tpu_torch.models.builder import ModelBuilder
+    from avsep_tpu_torch.models.motion import SPEED_RATIO
+    from avsep_tpu_torch.ops.imagenet import normalize_frames
+    nets = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        net = ModelBuilder.build_motion("slowfast_r50", dtype)
+        net.reset_parameters_(torch.Generator().manual_seed(SEED))
+        nets[dtype] = net.to(dev).train()
+    net = nets[torch.float32]
+    w = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    B, T, H, W = shape
+    clips = torch.randint(0, 256, (B, T, H, W, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(SEED + 11)
+                          ).to(dev)
+    want = reference_maps(clips, w, "float32")
+    readings = {"sound": pathway_errors(port_maps(net, clips), want)}
+    lateral = net.slow_path.layer3_lateral.weight
+    with torch.no_grad():
+        lateral.zero_()
+    readings["last_lateral_zeroed"] = pathway_errors(port_maps(net, clips),
+                                                     want)
+    with torch.no_grad():
+        lateral.copy_(w["slow_path.layer3_lateral.weight"])
+    net.slow_frames = lambda c: normalize_frames(c[:, 1::SPEED_RATIO])
+    readings["slow_frames_from_1"] = pathway_errors(port_maps(net, clips),
+                                                    want)
+    del net.slow_frames
+    readings["bfloat16"] = pathway_errors(
+        port_maps(nets[torch.bfloat16], clips), want)
+    readings["reference_bfloat16"] = pathway_errors(
+        reference_maps(clips, w, "bfloat16"), want)
+    emit("slowfast_pathways", clips=list(shape), tolerance=PATHWAY_TOL,
+         readings=readings, nvidia_smi=nvidia_smi_line()
+         if torch.cuda.is_available() else None)
+    faults = [readings["last_lateral_zeroed"], readings["slow_frames_from_1"]]
+    if max(readings["sound"].values()) > PATHWAY_TOL or any(
+            r["slow"] <= PATHWAY_TOL or r["pooled"] <= PATHWAY_TOL
+            or r["fast"] > PATHWAY_TOL for r in faults):
+        raise AssertionError(
+            f"slowfast_pathways: SlowFast R50 against the reference "
+            f"(tolerance {PATHWAY_TOL}): {readings}")
+    return readings
 
 
 def flagship_inputs(gen, dev, n, batch):
@@ -2404,20 +2521,48 @@ def unchanged(state, snap):
     return True
 
 
-def run_clipatt_train(dev, dtype="float32"):
+def slow_stage_layouts(net, batch):
+    """Whether each slow stage's input (the slow map with its lateral
+    concatenated) is channels-last-3d and dense, in one train-mode forward
+    of the first source's clips without a gradient, the running statistics
+    left as they are."""
+    from avsep_tpu_torch.models.layers import running_stats_frozen
+    seen, hooks = {}, []
+    for stage in net.slow_path.stages:
+        block = getattr(net.slow_path, stage[0])
+        hooks.append(block.register_forward_pre_hook(
+            lambda m, args, name=stage[0]: seen.__setitem__(
+                name, args[0].is_contiguous(
+                    memory_format=torch.channels_last_3d))))
+    try:
+        with torch.no_grad(), running_stats_frozen():
+            net.pooled_map(batch["clips"][:, 0])
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def run_clipatt_train(dev, dtype="float32", arch="slowfast_fast"):
     """scripts/train_MUSIC.sh's flags with ``--fusion_type CoLoc_ClipAtt
     --load_clips`` on one card at full width in ``dtype`` (phase
-    ``clipatt_train`` in float32, ``clipatt_train_bf16``): warm-up steps,
-    then timed AV and AO steps as batch_scheduler says, host clock around
-    each (synchronized); frame_window twice per step, finite losses, an
-    AV step leaves the frame net and group bit for bit, an AO step the
-    frame and motion nets and groups; in bfloat16 the motion stem's pair
-    twice per AV step (one per source) and never in an AO step, in float32
-    never, and its BatchNorm pair 2 x 53 times per AV step, else never;
-    then one profiled AV step."""
-    phase = "clipatt_train" if dtype == "float32" else "clipatt_train_bf16"
+    ``clipatt_train`` in float32, ``clipatt_train_bf16``; with ``arch``
+    ``slowfast_r50``, ``--arch_motion slowfast_r50``, phase
+    ``slowfast_train_bf16``): warm-up steps, then timed AV and AO steps as
+    batch_scheduler says, host clock around each (synchronized);
+    frame_window twice per step, finite losses, an AV step leaves the frame
+    net and group bit for bit, an AO step the frame and motion nets and
+    groups; in bfloat16 the motion stem's pair twice per AV step (one per
+    source) and never in an AO step, in float32 never, and its BatchNorm
+    pair 2 x 53 times per AV step (2 x 106 with the slow pathway), else
+    never; with the slow pathway, each slow stage's input channels-last-3d
+    and dense; then one profiled AV step."""
+    slow = arch == "slowfast_r50"
+    phase = "slowfast_train_bf16" if slow else \
+        "clipatt_train" if dtype == "float32" else "clipatt_train_bf16"
     bf16 = dtype != "float32"
-    cfg = Config(**CLIPATT, dtype=dtype)
+    cfg = Config(**CLIPATT, dtype=dtype, arch_motion=arch)
+    norms = MOTION_BNS * (2 if slow else 1)
     state = train.init_state(cfg, engine.build_nets(cfg),
                              torch.Generator().manual_seed(SEED))
     steps = {v: train.make_train_step(cfg, state.nets, v)
@@ -2452,7 +2597,7 @@ def run_clipatt_train(dev, dtype="float32"):
         per_step.append(n1["frame_window"] - n0["frame_window"])
         motion_per_step.append([n1[k] - n0[k] for k in MOTION_KERNELS])
         motion_want.append([2 * (av and bf16)] * 2
-                         + [2 * MOTION_BNS * (av and bf16)] * 2)
+                         + [2 * norms * (av and bf16)] * 2)
         losses += [float(m["err"]), float(m["match_loss"])]
         frozen.append(unchanged(state, snap))
     launches = read_launches()
@@ -2473,10 +2618,18 @@ def run_clipatt_train(dev, dtype="float32"):
                              f"{frozen}")
     if not times[True] or not times[False]:
         raise AssertionError(f"{phase}: no AV or no AO step was timed")
+    layouts = slow_stage_layouts(state.nets.motion, batches[0]) if slow \
+        else None
+    if layouts is not None and not all(layouts.values()):
+        raise AssertionError(f"{phase}: a slow stage's input is not "
+                             f"channels-last-3d and dense: {layouts}")
+    net = ("SlowFast R50: slow base 64 on every 8th frame, fast base 8, "
+           "5x1x1 laterals, fc to 256" if slow else "fast pathway base 8")
     emit(phase, config="scripts/train_MUSIC.sh + --fusion_type "
-         "CoLoc_ClipAtt --load_clips on one card (unet7, fast pathway base "
-         f"8 [3, 4, 6, 3], clip_len {cfg.clip_len} at 224x224, {dtype}, "
-         "TF32 off, dft matmul)", batch=B, batch_cut=None,
+         f"CoLoc_ClipAtt --load_clips --arch_motion {arch} on one card "
+         f"(unet7, {net}, [3, 4, 6, 3], clip_len {cfg.clip_len} at "
+         f"224x224, {dtype}, TF32 off, dft matmul)", batch=B, batch_cut=None,
+         slow_stage_inputs_channels_last=layouts,
          steps=CLIPATT_STEPS, ms_per_av_step=float(np.median(times[True])),
          ms_per_ao_step=float(np.median(times[False])),
          av_step_ms=times[True], ao_step_ms=times[False],
@@ -4154,6 +4307,8 @@ def main() -> int:
     check_ragged(dev, gen)
     rows += check_motion_stem(dev, flush)
     rows += check_motion_bn(dev, flush)
+    check_motion_bn(dev, flush, slowfast=True)
+    check_slowfast_pathways(dev)
     del flush
 
     sep_launches, nets, flagship = run_flagship(dev, gen)
@@ -4192,8 +4347,11 @@ def main() -> int:
     # slice 7, each phase from a generator of its own
     launches["clipatt_train"] = run_clipatt_train(dev)
     launches["clipatt_train_bf16"] = run_clipatt_train(dev, "bfloat16")
+    launches["slowfast_train_bf16"] = run_clipatt_train(dev, "bfloat16",
+                                                        "slowfast_r50")
     calls.update(clipatt_train=CLIPATT_STEPS,
                  clipatt_train_bf16=CLIPATT_STEPS,
+                 slowfast_train_bf16=CLIPATT_STEPS,
                  clipatt_eval=2 * CLIPATT_EVAL_STEPS)
     launches["clipatt_eval"] = run_clipatt_eval(dev)
     clipatt_card_vs_cpu(dev, torch.Generator().manual_seed(SEED))
@@ -4256,6 +4414,19 @@ def kernel_phase_only(check):
     return run
 
 
+def slowfast_only():
+    """SlowFast R50's phases alone: motion_bn_slowfast, slowfast_pathways
+    and slowfast_train_bf16; the last one's launches and its steps."""
+    dev = torch.device(DEVICE)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    check_motion_bn(dev, flush, slowfast=True)
+    del flush
+    check_slowfast_pathways(dev)
+    launches = run_clipatt_train(dev, "bfloat16", "slowfast_r50")
+    return ({"slowfast_train_bf16": launches},
+            {"slowfast_train_bf16": CLIPATT_STEPS})
+
+
 def only(argv) -> int:
     """``python3 chip_smoke.py --only cli_launch``: the card line, the
     kernels' build and the cli_launch phase alone, for a machine with two
@@ -4263,18 +4434,21 @@ def only(argv) -> int:
     proof_tools phase (without the train phase's rates), ``--only
     measure_tools`` with the measure_tools phase, ``--only trace_tools``
     with the trace_tools phase, ``--only motion_stem`` and ``--only
-    motion_bn`` with the motion net's kernel phases; then the launches by
+    motion_bn`` with the motion net's kernel phases, ``--only
+    slowfast_train_bf16`` with that train phase; then the launches by
     path."""
     phases = {"cli_launch": cli_launch,
               "proof_tools": lambda: proof_tools(torch.device(DEVICE)),
               "measure_tools": lambda: measure_tools(torch.device(DEVICE)),
               "trace_tools": trace_tools,
               "motion_stem": kernel_phase_only(check_motion_stem),
-              "motion_bn": kernel_phase_only(check_motion_bn)}
+              "motion_bn": kernel_phase_only(check_motion_bn),
+              "slowfast_train_bf16": slowfast_only}
     if len(argv) != 1 or argv[0] not in phases or \
             not torch.cuda.is_available():
         print("chip_smoke --only: cli_launch, proof_tools, measure_tools, "
-              "trace_tools, motion_stem or motion_bn, on a GPU",
+              "trace_tools, motion_stem, motion_bn or slowfast_train_bf16, "
+              "on a GPU",
               file=sys.stderr)
         return 2
     engine.full_float32()

@@ -42,19 +42,29 @@ def script_args(name, **subst):
     return argv
 
 
+# the port's fields that the JAX package's Config has not, with their
+# defaults: the motion net's architecture (the JAX package builds the fast
+# pathway alone)
+PORT_ONLY = {"arch_motion": "slowfast_fast"}
+
+
 @pytest.mark.parametrize("script,subst", [
     ("train_MUSIC.sh", {}),
     ("eval_MUSIC.sh", {})])
 def test_script_flags_parse_as_the_jax_package(script, subst):
     argv = script_args(script, **subst)
     got, want = parse_args(argv), jparse_args(argv)
-    shared = [f.name for f in dataclasses.fields(Config)]
+    shared = [f.name for f in dataclasses.fields(Config)
+              if f.name not in PORT_ONLY]
     assert len(shared) > 60
     for name in shared:
         assert getattr(got, name) == getattr(want, name), name
     # use_pallas, which the port's Config has no field for, holds its
-    # default
+    # default; the port's own fields, which the JAX package's Config has
+    # not, hold theirs
     assert not hasattr(got, "use_pallas") and want.use_pallas is False
+    for name, default in PORT_ONLY.items():
+        assert not hasattr(want, name) and getattr(got, name) == default
     assert got.batch_size == want.batch_size
 
 

@@ -13,7 +13,8 @@ to the ``train.motion`` span as stretch M attributes kernels.
 
 On a card (the ``cuda`` marker; each test skips without one) the kernels
 against the plain version on the card at every BatchNorm shape of the net
-at 16 clips of 32 x 224 x 224, at ragged row counts and at C = 8, 24 and
+at 16 clips of 32 x 224 x 224, at every slow norm of SlowFast R50 there
+(64 to 2048 channels), at ragged row counts and at C = 8, 24 and
 256; two calls bit for bit; and bfloat16 clips steps captured in a CUDA
 graph advance the counters.  The file imports torch, the port and the
 graph tests' helpers only, so the card's machine, which has no JAX, runs
@@ -52,7 +53,7 @@ import tests.torch_cpu  # noqa: F401 (torch's threads under xdist)
 from avsep_tpu_torch import engine
 from avsep_tpu_torch.config import Config
 from avsep_tpu_torch.models import layers, motion
-from avsep_tpu_torch.models.motion import ResNet3dFastOnly
+from avsep_tpu_torch.models.motion import ResNet3dFastOnly, ResNet3dSlowFast
 from avsep_tpu_torch.ops import kernels
 from avsep_tpu_torch.utils import spans
 from tests.test_torch_motion_stem import clip_cases, graphed_clip_steps
@@ -250,11 +251,12 @@ def test_cuda_path_rejects_what_the_kernels_do_not_take(bad):
         kernels._motion_bn_cuda(x, bn.weight, bn.bias, bn.eps, True)
 
 
-def bn_shapes(B, T, H, W):
-    """Every BatchNorm call of the net on ``[B, T, H, W, 3]`` clips, in
-    order: ``(name, [B, C, T, h, w], relu, residual)``, from the float32
-    net on the meta device."""
-    net = ResNet3dFastOnly().to("meta").train()
+def bn_shapes(B, T, H, W, net_class=ResNet3dFastOnly):
+    """Every BatchNorm call of the net (the fast pathway, or another motion
+    net class) on ``[B, T, H, W, 3]`` clips, in order: ``(name, [B, C, T,
+    h, w], relu, residual)``, from the float32 net on the meta device."""
+    with torch.device("meta"):
+        net = net_class().train()
     shapes = []
     for name, m in net.named_modules():
         if isinstance(m, layers.BatchNorm):
@@ -469,6 +471,11 @@ def _assert_within(shape, out, flips, max_share=None):
 
 CELL = bn_shapes(16, 32, 224, 224)
 CELL_CASES = sorted({(s, relu, res) for _, s, relu, res in CELL})
+# SlowFast R50's slow pathway at the same clips: every distinct norm, 64 to
+# 2048 channels on 4 frames (at 1024 and 2048 the plan reads two rows or
+# one per block iteration)
+SLOW_CASES = sorted({(s, relu, res) for name, s, relu, res in bn_shapes(
+    16, 32, 224, 224, ResNet3dSlowFast) if name.startswith("slow_path.")})
 
 
 @pytest.mark.cuda
@@ -487,6 +494,20 @@ def test_kernels_match_plain_at_the_cells_shapes_on_cuda(cuda_device, shape,
     assert got[0].is_contiguous(memory_format=CL)
     assert (n1["motion_bn"] - n0["motion_bn"],
             n1["motion_bn_backward"] - n0["motion_bn_backward"]) == (1, 1)
+    _assert_within(shape, out, flips, max_share=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,relu,res", SLOW_CASES,
+                         ids=[f"{s[1]}x{s[3]}{'_relu' * r}{'_res' * q}"
+                              for s, r, q in SLOW_CASES])
+def test_kernels_match_plain_at_the_slow_pathways_shapes_on_cuda(
+        cuda_device, shape, relu, res):
+    """SlowFast R50's slow pathway at the cell's clips: every distinct
+    BatchNorm call, 64 to 2048 channels, within the tolerances, each sum's
+    tolerance under 1e-3 of a typical value."""
+    out, flips, got, _ = _check(cuda_device, shape, relu, res)
+    assert got[0].is_contiguous(memory_format=CL)
     _assert_within(shape, out, flips, max_share=1e-3)
 
 

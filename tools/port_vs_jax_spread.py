@@ -126,7 +126,10 @@ class ClipAtt:
 
     def __init__(self):
         self.cfg = Config(**{**cs.CLIPATT, **cs.CLIPATT_SMALL})
-        self.jcfg = JConfig(**dataclasses.asdict(self.cfg))
+        fields = {f.name for f in dataclasses.fields(JConfig)}
+        self.jcfg = JConfig(**{k: v for k, v in
+                               dataclasses.asdict(self.cfg).items()
+                               if k in fields})
         jnets = jengine.build_nets(self.jcfg)
         self.kinds = (True, False)
         self.jsteps = {k: jtrain.make_train_step(self.jcfg, jnets, k)
