@@ -25,7 +25,10 @@ In bfloat16 at base 8 the stem is ``ops/kernels.motion_stem`` instead
 uint8 included, and normalizes them in its load; ``conv1`` keeps its
 weight, and the float32 net its ``nn.Conv3d``.  In bfloat16 train mode on
 one rank each BatchNorm, with the ReLU after it and a block's residual add,
-is ``ops/kernels.motion_bn`` (:func:`bn_act`).
+is ``ops/kernels.motion_bn`` (:func:`bn_act`).  In bfloat16 on a card each
+3x1x1 ``conv1`` of up to 64 outputs (the fast pathway's 16) is
+``ops/kernels.motion_conv_t3`` on its channels-last-3d input
+(:func:`conv_t3`).
 The fast pathway's submodules carry the JAX package's names (``conv1``,
 ``bn1``, ``layer{i}_{j}.conv{1,2,3}``, ``bn{1,2,3}``, ``downsample_conv``,
 ``downsample_bn``), so a JAX parameter path is a ``state_dict`` key
@@ -88,6 +91,37 @@ def bn_act(bn: BatchNorm, x: torch.Tensor, relu: bool = True,
     return torch.relu(y) if relu else y
 
 
+def conv_t3_takes(conv: Conv3d, x: torch.Tensor) -> bool:
+    """Whether ``conv(x)`` is a shape ``kernels.motion_conv_t3`` takes,
+    whatever the device: a bfloat16 conv and input, 3x1x1 at stride 1 and
+    temporal padding 1 without bias, ``x`` dense channels-last-3d and
+    16-byte aligned, and channels the kernels serve
+    (``kernels.motion_conv_t3_fits``: at most 64 outputs, below the card's
+    operations a byte).  The slow pathway's wide 3x1x1s (256 and 512
+    outputs), the float32 net, an NCDHW input and the 1x1x1 ``conv1``s keep
+    the module."""
+    return (conv.compute_dtype == torch.bfloat16
+            and x.dtype == torch.bfloat16 and x.dim() == 5
+            and tuple(conv.kernel_size) == (3, 1, 1)
+            and tuple(conv.stride) == (1, 1, 1)
+            and tuple(conv.padding) == (1, 0, 0)
+            and tuple(conv.dilation) == (1, 1, 1) and conv.groups == 1
+            and conv.bias is None
+            and x.is_contiguous(memory_format=torch.channels_last_3d)
+            and x.data_ptr() % 16 == 0
+            and kernels.motion_conv_t3_fits(conv.in_channels,
+                                            conv.out_channels))
+
+
+def conv_t3(conv: Conv3d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)``: ``kernels.motion_conv_t3`` on a CUDA tensor where
+    :func:`conv_t3_takes` (the weight cast to bfloat16 as the module casts
+    it), else the module."""
+    if x.is_cuda and conv_t3_takes(conv, x):
+        return kernels.motion_conv_t3(x, conv.weight.to(torch.bfloat16))
+    return conv(x)
+
+
 class Bottleneck3d(nn.Module):
     """mmaction's Bottleneck3d with the '3x1x1' temporal inflation on
     ``conv1`` (a 1x1x1 ``conv1`` where ``inflate`` is off); the output has
@@ -117,7 +151,7 @@ class Bottleneck3d(nn.Module):
             self.downsample_bn = _bn(out, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = bn_act(self.bn1, self.conv1(x))
+        y = bn_act(self.bn1, conv_t3(self.conv1, x))
         y = self.conv3(bn_act(self.bn2, self.conv2(y)))
         identity = x
         if self.has_downsample:

@@ -21,6 +21,12 @@ Port of ``avsep_tpu/ops/pallas_kernels.py``:
   in bfloat16 on channels-last clips' activations, with the ReLU after it
   and a bottleneck's residual add; source ``csrc/motion_bn.cu``.  The ops
   ``avsep::motion_bn`` and ``avsep::motion_bn_backward``, as the stem's.
+* :func:`motion_conv_t3` and :func:`motion_conv_t3_wgrad` (no TPU kernel:
+  the JAX package leaves the convolution to XLA): the motion net's 3x1x1
+  temporal convolutions in bfloat16 on channels-last-3d activations, whose
+  input gradient is the same op with the taps transposed and reversed,
+  and their weight gradient; source ``csrc/motion_conv_t3.cu``.  The ops
+  ``avsep::motion_conv_t3`` and ``avsep::motion_conv_t3_wgrad``.
 
 Each wrapper checks its inputs and then dispatches on the tensor's device
 alone: a CPU tensor goes to the plain PyTorch version in this module, a CUDA
@@ -28,7 +34,8 @@ tensor launches the kernel on the current stream or raises.  Each wrapper
 counts its kernel launches in a plain integer attribute
 (``frame_window.launches``, ``overlap_add_normalize.launches``,
 ``motion_stem.launches``, ``motion_stem_wgrad.launches``,
-``motion_bn.launches``, ``motion_bn_backward.launches``, one a call;
+``motion_bn.launches``, ``motion_bn_backward.launches``,
+``motion_conv_t3.launches``, ``motion_conv_t3_wgrad.launches``, one a call;
 :func:`launch_counts` reads them all) so that a run can show that the main
 path went through the kernels.
 
@@ -71,6 +78,9 @@ SOURCES = {
     "motion_stem_wgrad": ("motion_stem.cu", "avsep_motion_stem_wgrad"),
     "motion_bn": ("motion_bn.cu", "avsep_motion_bn"),
     "motion_bn_backward": ("motion_bn.cu", "avsep_motion_bn_backward"),
+    "motion_conv_t3": ("motion_conv_t3.cu", "avsep_motion_conv_t3"),
+    "motion_conv_t3_wgrad": ("motion_conv_t3.cu",
+                             "avsep_motion_conv_t3_wgrad"),
 }
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _I64, _F32 = ctypes.c_longlong, ctypes.c_float
@@ -90,6 +100,8 @@ ARGTYPES = {
     "motion_bn": [_PTR] * 8 + [_I64, _INT, _INT, _INT, _F32, _INT, _PTR],
     "motion_bn_backward": [_PTR] * 12
     + [_I64, _INT, _INT, _INT, _F32, _INT, _PTR],
+    "motion_conv_t3": [_PTR] * 3 + [_INT] * 11 + [_PTR],
+    "motion_conv_t3_wgrad": [_PTR] * 4 + [_INT] * 9 + [_PTR],
 }
 # dynamic shared memory of one block: what a launch gets without opting in,
 # and the most an H100 block can opt in to
@@ -714,3 +726,306 @@ def motion_bn_backward(grad, x, weight, bias, mean, var, eps, relu,
 
 
 motion_bn_backward.launches = 0
+
+
+# ------------------------------------------- motion net 3x1x1 convolution
+
+# csrc/motion_conv_t3.cu: the (channels, outputs, warps across the
+# outputs) the convolution is instantiated for, the fast pathway's conv1s
+# and their input gradients, and the (channels, outputs) of the weight
+# gradient's; the widest output the design serves (above it the conv is
+# compute-bound: the slow pathway's 256 and 512); the shared memory a block
+# may use where two share an SM (an SM's 228 KiB, 1 KiB reserved a block);
+# the stages of a ring; the H100's SMs; the 16-byte chunks of a weight
+# gradient's stage (32 KB)
+_T3_CONV_LAYOUTS = frozenset({
+    (8, 8, 1), (32, 8, 1), (32, 16, 1), (64, 16, 1), (64, 32, 1),
+    (128, 32, 2), (128, 64, 2), (256, 64, 4),
+    (8, 32, 1), (16, 32, 1), (16, 64, 2), (32, 64, 2), (32, 128, 4),
+    (64, 128, 4), (64, 256, 8)})
+_T3_WGRAD_PAIRS = frozenset({
+    (8, 8), (32, 8), (32, 16), (64, 16), (64, 32), (128, 32), (128, 64),
+    (256, 64)})
+T3_MAX_OUT = 64
+_T3_SMEM_TWO = 233472 // 2 - 1024
+_T3_MAX_STAGES = 5
+_T3_SMS = 132
+_T3_STAGE_CHUNKS = 2048
+# the zero line at the head of a block's shared memory
+_T3_ZERO = 128
+
+
+def _t3_stages(fixed: int, stage: int):
+    """``(stages, blocks_per_sm)``: as many ring stages as let two blocks
+    share an SM, up to :data:`_T3_MAX_STAGES`; else as many as one block
+    holds.  Blocks an SM: as many as their shared memory allows, at most
+    3 (the registers of 256 threads at up to 85 each).  Raises ValueError
+    where not even 4 stages fit."""
+    for budget in (_T3_SMEM_TWO, _SMEM_OPTIN_MAX):
+        n = min(_T3_MAX_STAGES, (budget - fixed) // stage)
+        if n >= 4:
+            smem = fixed + n * stage
+            return n, min(3, (2 * _T3_SMEM_TWO + 2048) // (smem + 1024))
+    raise ValueError(f"motion_conv_t3: {fixed} + 4 x {stage} bytes of "
+                     "shared memory do not fit a block")
+
+
+def _t3_run(frames: int, pairs: int, slots: int) -> int:
+    """The frames a block walks, a divisor of ``frames`` (a shorter last run
+    leaves SMs idle): the run whose waves of blocks (``pairs`` of clip and
+    position tile, each cut into runs, over ``slots`` blocks resident on
+    the card) times its frames plus the two of its halo is least; the
+    longer run on a tie."""
+    def cost(run):
+        return (-(-pairs * (frames // run) // slots) * (run + 2), -run)
+    return min((r for r in range(1, frames + 1) if frames % r == 0),
+               key=cost)
+
+
+@functools.lru_cache(maxsize=None)
+def motion_conv_t3_plan(hw: int, frames: int, batch: int, channels: int,
+                        n_out: int):
+    """``(wn, tile_rows, run, stages, smem)`` of the convolution kernel for
+    x ``[batch, channels, frames, H, W]`` (``hw`` = H W) and ``n_out``
+    outputs: ``wn`` warps across the outputs (each 1 to 4 tiles of 8, the
+    rest of the 8 warps across positions, 32 each), as few as keep a stage
+    of ``256 / wn`` positions within 32 KB; the plane cut into equal tiles
+    of ``tile_rows`` positions, at most ``256 / wn``; ``run`` frames a
+    block; ``stages`` of the ring; the block's dynamic shared memory.
+    Raises ValueError for a shape the kernel is not built for."""
+    wn = min(max(1, n_out // 8), max(1, n_out // 32, channels // 64))
+    if (channels, n_out, wn) not in _T3_CONV_LAYOUTS:
+        raise ValueError(f"motion_conv_t3 kernel is built for the fast "
+                         f"pathway's conv1s and their input gradients, not "
+                         f"{channels} -> {n_out} channels")
+    bm = 32 * (8 // wn)
+    tiles = -(-hw // bm)
+    stage = 2 * bm * channels
+    fixed = _T3_ZERO + 2 * 3 * n_out * channels
+    stages, per_sm = _t3_stages(fixed, stage)
+    run = _t3_run(frames, tiles * batch, _T3_SMS * per_sm)
+    return wn, -(-hw // tiles), run, stages, fixed + stages * stage
+
+
+@functools.lru_cache(maxsize=None)
+def motion_conv_t3_wgrad_plan(hw: int, frames: int, batch: int,
+                              channels: int, n_out: int):
+    """``(bm, run, stages, groups, smem, blocks)`` of the weight gradient's
+    kernel: ``groups`` of up to 4 chunks of 8 channels with their three
+    taps, each a block over the same positions; the plane cut into equal
+    tiles of ``bm`` positions (a multiple of 16), as few as keep a stage of
+    the group's channels of x and of dy within 32 KB; ``run`` frames a
+    block; ``stages`` of the ring; the block's dynamic shared memory; the
+    ``blocks`` over positions, each a row of the float32 partial sums.
+    Raises ValueError for a shape the kernel is not built for."""
+    if (channels, n_out) not in _T3_WGRAD_PAIRS:
+        raise ValueError(f"motion_conv_t3_wgrad kernel is built for the fast "
+                         f"pathway's conv1s, not {channels} -> {n_out} "
+                         "channels")
+    c8 = channels // 8
+    gc8 = min(c8, 4)
+    row = gc8 + n_out // 8
+    most = min(512, 16 * (_T3_STAGE_CHUNKS // (16 * row)))
+    tiles = -(-hw // most)
+    bm = 16 * -(-hw // (16 * tiles))
+    stages, per_sm = _t3_stages(_T3_ZERO, 16 * bm * row)
+    # the warps' sums of the rows they share, in the ring after the walk
+    smem = _T3_ZERO + max(stages * 16 * bm * row, 8 * n_out * 64)
+    groups = c8 // gc8
+    run = _t3_run(frames, tiles * batch * groups, _T3_SMS * per_sm)
+    return bm, run, stages, groups, smem, tiles * batch * -(-frames // run)
+
+
+@functools.lru_cache(maxsize=None)
+def motion_conv_t3_fits(channels: int, n_out: int) -> bool:
+    """Whether the kernels take a 3x1x1 conv of ``channels`` -> ``n_out``
+    channels, forward, input gradient (``n_out`` -> ``channels``) and
+    weight gradient: ``n_out`` at most :data:`T3_MAX_OUT`, where the shape
+    stays below the card's 295 operations a byte, and each plan exists."""
+    if n_out > T3_MAX_OUT:
+        return False
+    try:
+        motion_conv_t3_plan(1, 1, 1, channels, n_out)
+        motion_conv_t3_plan(1, 1, 1, n_out, channels)
+        motion_conv_t3_wgrad_plan(1, 1, 1, channels, n_out)
+    except ValueError:
+        return False
+    return True
+
+
+def _t3_padded(x: torch.Tensor):
+    """x ``[B, C, T, H, W]`` -> ``[B, T, H W, C]`` float32 with a zero frame
+    each side of T."""
+    B, C, T, H, W = x.shape
+    xl = x.permute(0, 2, 3, 4, 1).reshape(B, T, H * W, C).float()
+    return F.pad(xl, (0, 0, 0, 0, 1, 1))
+
+
+def motion_conv_t3_plain(x: torch.Tensor, weight: torch.Tensor,
+                         grad_input: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of :func:`motion_conv_t3`: the three temporal
+    taps (with ``grad_input`` each transposed, in reverse order) as float32
+    products over the channels-last view, summed in float32 and rounded
+    once to ``x``'s dtype; a channels-last-3d result."""
+    B, C, T, H, W = x.shape
+    xp = _t3_padded(x)
+    if grad_input:
+        weight = weight.flip(2).transpose(0, 1)
+    w = weight[:, :, :, 0, 0].float()
+    y = sum(xp[:, k:k + T] @ w[:, :, k].t() for k in range(3))
+    return y.to(x.dtype).reshape(B, T, H, W, -1).permute(0, 4, 1, 2, 3)
+
+
+def motion_conv_t3_wgrad_plain(x: torch.Tensor,
+                               grad: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`motion_conv_t3_wgrad`: for each tap
+    the float32 sum over every position of the output gradient times the
+    shifted input, rounded once to ``x``'s dtype: ``[N, C, 3, 1, 1]``."""
+    B, C, T, H, W = x.shape
+    xp = _t3_padded(x)
+    g = grad.permute(0, 2, 3, 4, 1).reshape(-1, grad.shape[1]).float()
+    dw = torch.stack([g.t() @ xp[:, k:k + T].reshape(-1, C)
+                      for k in range(3)], dim=-1)
+    return dw.to(x.dtype)[..., None, None]
+
+
+def _check_t3_cuda(name: str, t: torch.Tensor) -> None:
+    if not t.is_contiguous(memory_format=torch.channels_last_3d):
+        raise ValueError(f"motion_conv_t3: {name} must be channels-last-3d "
+                         f"(dense NDHWC), got strides {t.stride()}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"motion_conv_t3: {name} must be 16-byte aligned")
+    if t.numel() > _INT32_MAX * 8:
+        raise ValueError(f"motion_conv_t3: {name} has {t.numel()} elements; "
+                         "the kernels index 16-byte chunks in 32 bits")
+    if t.shape[0] > _MAX_GRID_Y:
+        raise ValueError(f"motion_conv_t3 kernel takes at most {_MAX_GRID_Y}"
+                         f" clips, got {t.shape[0]}")
+
+
+def _motion_conv_t3_cuda(x: torch.Tensor, weight: torch.Tensor,
+                         grad_input: bool = False) -> torch.Tensor:
+    B, C, T, H, W = x.shape
+    N = weight.shape[1 if grad_input else 0]
+    _check_t3_cuda("x", x)
+    wn, tile_rows, run, stages, smem = motion_conv_t3_plan(H * W, T, B, C,
+                                                           N)
+    # the kernel gathers its taps from the weight as it lies
+    weight = weight.contiguous()
+    if weight.data_ptr() % 16:
+        raise ValueError("motion_conv_t3: weight must be 16-byte aligned")
+    y = torch.empty((B, N, T, H, W), dtype=x.dtype, device=x.device,
+                    memory_format=torch.channels_last_3d)
+    if y.numel():
+        _launch("motion_conv_t3", x.device, x.data_ptr(), weight.data_ptr(),
+                y.data_ptr(), B, T, H * W, C, N, wn, tile_rows, run, stages,
+                int(grad_input), smem)
+        motion_conv_t3.launches += 1
+    return y
+
+
+def _motion_conv_t3_wgrad_cuda(x: torch.Tensor,
+                               grad: torch.Tensor) -> torch.Tensor:
+    B, C, T, H, W = x.shape
+    N = grad.shape[1]
+    _check_t3_cuda("x", x)
+    _check_t3_cuda("grad", grad)
+    bm, run, stages, _, smem, blocks = motion_conv_t3_wgrad_plan(
+        H * W, T, B, C, N)
+    dw = torch.empty((N, C, 3, 1, 1), dtype=x.dtype, device=x.device)
+    if x.numel() == 0:
+        return dw.zero_()
+    partial = torch.empty((blocks, 3 * C * N), dtype=torch.float32,
+                          device=x.device)
+    _launch("motion_conv_t3_wgrad", x.device, x.data_ptr(), grad.data_ptr(),
+            partial.data_ptr(), dw.data_ptr(), B, T, H * W, C, N, bm, run,
+            stages, smem)
+    motion_conv_t3_wgrad.launches += 1
+    return dw
+
+
+def _t3_setup(ctx, inputs, output) -> None:
+    x, weight, grad_input = inputs
+    if grad_input:
+        ctx.mark_non_differentiable(output)
+    ctx.save_for_backward(x, weight)
+
+
+def _t3_backward(ctx, grad: torch.Tensor):
+    x, weight = ctx.saved_tensors
+    # autograd hands over whatever layout the next layer's backward made
+    grad = grad.contiguous(memory_format=torch.channels_last_3d)
+    need = ctx.needs_input_grad
+    # the input gradient: the same convolution, taps transposed and reversed
+    dx = torch.ops.avsep.motion_conv_t3(grad, weight, True) if need[0] \
+        else None
+    dw = torch.ops.avsep.motion_conv_t3_wgrad(x, grad) if need[1] else None
+    return dx, dw, None
+
+
+_LIB.define("motion_conv_t3(Tensor x, Tensor weight, bool grad_input=False) "
+            "-> Tensor")
+_LIB.define("motion_conv_t3_wgrad(Tensor x, Tensor grad) -> Tensor")
+_LIB.impl("motion_conv_t3", motion_conv_t3_plain, "CPU")
+_LIB.impl("motion_conv_t3", _motion_conv_t3_cuda, "CUDA")
+_LIB.impl("motion_conv_t3_wgrad", motion_conv_t3_wgrad_plain, "CPU")
+_LIB.impl("motion_conv_t3_wgrad", _motion_conv_t3_wgrad_cuda, "CUDA")
+torch.library.register_autograd("avsep::motion_conv_t3", _t3_backward,
+                                setup_context=_t3_setup, lib=_LIB)
+
+
+def _check_t3(x: torch.Tensor, other: torch.Tensor, name: str,
+              shape) -> None:
+    if not isinstance(x, torch.Tensor) or x.dtype != torch.bfloat16 or \
+            x.dim() != 5:
+        raise TypeError("x must be a bfloat16 [B, C, T, H, W] tensor, got "
+                        f"{getattr(x, 'dtype', type(x))} "
+                        f"{tuple(getattr(x, 'shape', ()))}")
+    if other.dtype != x.dtype or tuple(other.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {x.dtype} {tuple(shape)}, got "
+                         f"{other.dtype} {tuple(other.shape)}")
+    if x.device != other.device or x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"x ({x.device}) and {name} ({other.device}) must "
+                         "lie on one CPU or CUDA device")
+
+
+def motion_conv_t3(x: torch.Tensor, weight: torch.Tensor,
+                   grad_input: bool = False) -> torch.Tensor:
+    """The motion net's 3x1x1 convolution at stride 1, temporal padding 1,
+    no bias: ``x`` ``[B, C, T, H, W]`` and the conv's weight ``[N, C, 3, 1,
+    1]``, both bfloat16 -> ``[B, N, T, H, W]`` bfloat16, channels-last-3d;
+    float32 sums rounded once, as cuDNN's bfloat16 conv rounds them.  With
+    ``grad_input`` the weight is ``[C, N, 3, 1, 1]`` and its taps are taken
+    transposed and in reverse order: ``x`` is then the conv's output
+    gradient and the result its input gradient (no gradient flows through
+    such a call).
+
+    CPU tensor: plain version.  CUDA tensor: the kernel of
+    ``csrc/motion_conv_t3.cu``, which takes ``x`` channels-last-3d, dense
+    and 16-byte aligned, and the channels of the fast pathway's conv1s and
+    of their input gradients (``_T3_CONV_LAYOUTS``), and raises on anything
+    else.  The input gradient is this op with ``grad_input``, the weight
+    gradient :func:`motion_conv_t3_wgrad`."""
+    C = x.shape[1] if isinstance(x, torch.Tensor) and x.dim() == 5 else 0
+    other = weight.shape[int(grad_input)] if weight.dim() == 5 else 0
+    _check_t3(x, weight, "weight",
+              (C, other, 3, 1, 1) if grad_input else (other, C, 3, 1, 1))
+    return torch.ops.avsep.motion_conv_t3(x, weight, bool(grad_input))
+
+
+motion_conv_t3.launches = 0
+
+
+def motion_conv_t3_wgrad(x: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+    """The bfloat16 gradient of :func:`motion_conv_t3`'s weight given its
+    input ``x`` and its output's gradient ``grad`` ``[B, N, T, H, W]``:
+    ``[N, C, 3, 1, 1]``, float32 sums over every position rounded once.  On
+    a card the kernel takes the fast pathway's conv1s (``_T3_WGRAD_PAIRS``),
+    and the sums are taken in a fixed order, so two calls give the same
+    bits.  CPU tensor: plain version."""
+    _check_t3(x, grad, "grad", (x.shape[0], grad.shape[1], *x.shape[2:])
+              if x.dim() == 5 and grad.dim() == 5 else (-1,))
+    return torch.ops.avsep.motion_conv_t3_wgrad(x, grad)
+
+
+motion_conv_t3_wgrad.launches = 0

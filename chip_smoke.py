@@ -48,6 +48,15 @@ script exits non-zero before printing any result.
    motion_bn_slowfast: the same at SlowFast R50's 106 BatchNorm calls (the
    slow pathway's 64 to 2048 channels on 4 frames beside the fast
    pathway's), 2 x 106 per AV step.
+   motion_conv_t3: the motion net's bfloat16 3x1x1 convolution kernels
+   (forward, input gradient through the reversed taps, weight gradient)
+   against their plain version on the card at each of the fast pathway's
+   16 conv1 shapes at the clips cell (16 clips of 32 frames on 56 x 56 to
+   7 x 7), within the tolerances of tests/test_torch_motion_conv.py; two
+   calls bit for bit; the times per AV step (2 x 16 calls of each pass) of
+   the kernels, of their byte bound, of the plain version and of cuDNN's
+   bf16 ``F.conv3d`` and ``convolution_backward`` (``library_ms``).
+   ``--only motion_conv_t3`` runs it alone.
    slowfast_pathways: SlowFast R50 in train mode on 16 clips of 32 x 224 x
    224 against benchmark/reference/slowfast.py in float32, per pathway
    (slow map, fast map, the fc's pooled map): the float32 net within
@@ -666,8 +675,11 @@ def check_ragged(dev, gen):
 STEM_CLIPS = (16, 32, 224, 224)
 # the motion net's kernels, and its BatchNorm calls per clip batch
 MOTION_KERNELS = ("motion_stem", "motion_stem_wgrad", "motion_bn",
-                  "motion_bn_backward")
+                  "motion_bn_backward", "motion_conv_t3",
+                  "motion_conv_t3_wgrad")
 MOTION_BNS = 53
+# the fast pathway's 3x1x1 conv1s per clip batch (motion_conv_t3)
+MOTION_T3S = 16
 BF16_FLOPS_PER_S = 989e12
 
 
@@ -978,6 +990,125 @@ def check_motion_bn(dev, flush, slowfast: bool = False):
                  plain_ms=per_av["plain_backward_ms"],
                  bound_ms=per_av["backward_bound_ms"],
                  library_ms=per_av["library_backward_ms"])]
+
+
+def check_motion_conv_t3(dev, flush):
+    """``kernels.motion_conv_t3`` (forward, and input gradient through the
+    reversed taps) and ``motion_conv_t3_wgrad`` at each of the fast
+    pathway's 16 ``conv1`` shapes at the clips cell (phase
+    ``motion_conv_t3``: one source's 16 clips of 32 frames, 8 distinct
+    shapes), each pass against its plain version within the tolerances of
+    tests/test_torch_motion_conv.py, two calls bit for bit; then the times
+    of each distinct call, summed per AV step (2 sources x 16 conv1s): the
+    kernels, their byte bound (each pass reads one activation and writes or
+    reads the other once), the plain version and cuDNN's bfloat16
+    ``F.conv3d`` on the same channels-last-3d tensors with its
+    ``convolution_backward`` (``library_ms``, as the net ran them before),
+    each a CUDA graph's replay (:func:`graphed_ms`).  Returns the table's
+    two rows, per AV step: ``motion_conv_t3`` the forward and the input
+    gradient (its counter counts both), ``motion_conv_t3_wgrad``."""
+    import torch.nn.functional as F
+
+    from tests.test_torch_motion_conv import (
+        CONV1, cell_case, check_against_plain)
+    B = STEM_CLIPS[0]
+    shapes = {}
+    for _, c_in, c_out, scale in CONV1:
+        shapes[(c_in, c_out, scale)] = shapes.get((c_in, c_out, scale), 0) + 1
+    passes = ("forward", "input_gradient", "weight_gradient")
+    per_av = {f"{p}_{k}": 0.0 for p in passes
+              for k in ("ms", "bound_ms", "plain_ms", "library_ms")}
+    rows, worst, repeats = [], {p: 0.0 for p in passes}, True
+    for i, ((c_in, c_out, scale), n) in enumerate(sorted(shapes.items())):
+        x, w, grad = cell_case(c_in, c_out, scale, dev, seed=SEED + i,
+                               clips=B)
+        err = check_against_plain(x, w, grad)
+        for p, (e, _, _) in err.items():
+            worst[p] = max(worst[p], e)
+        repeats &= torch.equal(kernels.motion_conv_t3(x, w),
+                               kernels.motion_conv_t3(x, w))
+        repeats &= torch.equal(kernels.motion_conv_t3_wgrad(x, grad),
+                               kernels.motion_conv_t3_wgrad(x, grad))
+        pad = (1, 0, 0)
+
+        def library_backward(mask):
+            return lambda: torch.ops.aten.convolution_backward(
+                grad, x, w, None, (1, 1, 1), pad, (1, 1, 1), False,
+                (0, 0, 0), 1, mask)
+
+        t = {"forward_ms": lambda: kernels.motion_conv_t3(x, w),
+             "forward_plain_ms": lambda: kernels.motion_conv_t3_plain(x, w),
+             "forward_library_ms": lambda: F.conv3d(x, w, None, 1, pad),
+             "input_gradient_ms":
+                 lambda: kernels.motion_conv_t3(grad, w, True),
+             "input_gradient_plain_ms":
+                 lambda: kernels.motion_conv_t3_plain(grad, w, True),
+             "input_gradient_library_ms":
+                 library_backward((True, False, False)),
+             "weight_gradient_ms":
+                 lambda: kernels.motion_conv_t3_wgrad(x, grad),
+             "weight_gradient_plain_ms":
+                 lambda: kernels.motion_conv_t3_wgrad_plain(x, grad),
+             "weight_gradient_library_ms":
+                 library_backward((False, True, False))}
+        with torch.no_grad():
+            ms = {k: graphed_ms(fn, flush) for k, fn in t.items()}
+        n_bytes = 2 * (x.numel() + grad.numel())
+        for p in passes:
+            ms[f"{p}_bound_ms"] = n_bytes / HBM_BYTES_PER_S * 1e3
+        for k in per_av:
+            per_av[k] += 2 * n * ms[k]
+        rows.append({"c_in": c_in, "c_out": c_out,
+                     "plane": [56 // scale] * 2,
+                     "shape_in": list(x.shape), "calls_per_source": n,
+                     "plan": kernels.motion_conv_t3_plan(
+                         x.shape[3] * x.shape[4], x.shape[2], B, c_in, c_out),
+                     "plan_input_gradient": kernels.motion_conv_t3_plan(
+                         x.shape[3] * x.shape[4], x.shape[2], B, c_out, c_in),
+                     "plan_weight_gradient": kernels.motion_conv_t3_wgrad_plan(
+                         x.shape[3] * x.shape[4], x.shape[2], B, c_in, c_out),
+                     "max_err_over_tol": {p: err[p][0] for p in passes},
+                     "unequal_share": {p: err[p][1] for p in passes},
+                     "tol_share_of_value": {p: err[p][2] for p in passes},
+                     **ms})
+        del x, w, grad
+        torch.cuda.empty_cache()
+    if any(e > 1.0 for e in worst.values()) or not repeats:
+        raise AssertionError(f"motion_conv_t3 disagrees with its plain "
+                             f"version: {worst} of the tolerances; repeats "
+                             f"{repeats}")
+    if sum(shapes.values()) != 16:
+        raise AssertionError(f"motion_conv_t3: {sum(shapes.values())} "
+                             "conv1s, expected 16")
+    totals = {p: {"ms": per_av[f"{p}_ms"], "bound_ms": per_av[f"{p}_bound_ms"],
+                  "share_of_bound": per_av[f"{p}_bound_ms"]
+                  / per_av[f"{p}_ms"],
+                  "plain_ms": per_av[f"{p}_plain_ms"],
+                  "library_ms": per_av[f"{p}_library_ms"]} for p in passes}
+    all_ms = sum(v["ms"] for v in totals.values())
+    all_bound = sum(v["bound_ms"] for v in totals.values())
+    emit("motion_conv_t3", route="cuda",
+         source="avsep_tpu_torch/csrc/motion_conv_t3.cu",
+         replaces="none (cuDNN's 3x1x1 convolutions of the motion net's "
+         "bf16 train step, with their layout conversions)",
+         max_err_over_tol=worst, repeats=repeats,
+         calls_per_av_step=2 * sum(shapes.values()), per_av_step=totals,
+         kernels_ms=all_ms, bound_ms=all_bound,
+         share_of_bound=all_bound / all_ms, shapes=rows,
+         nvidia_smi=nvidia_smi_line())
+    common = dict(route="cuda",
+                  source="avsep_tpu_torch/csrc/motion_conv_t3.cu",
+                  bound_by="bytes", max_abs_err=None)
+    conv = ("forward", "input_gradient")
+    return [dict(common, name="motion_conv_t3",
+                 replaces="none (cuDNN's 3x1x1 conv of the fast pathway and "
+                 "its input gradient), ms per AV step",
+                 **{k: sum(totals[p][k] for p in conv)
+                    for k in ("ms", "plain_ms", "bound_ms", "library_ms")}),
+            dict(common, name="motion_conv_t3_wgrad",
+                 replaces="none (its weight gradient), ms per AV step",
+                 **{k: totals["weight_gradient"][k]
+                    for k in ("ms", "plain_ms", "bound_ms", "library_ms")})]
 
 
 # SlowFast R50 in float32 against the plain reference in float32: the norm
@@ -1938,14 +2069,17 @@ read_launches = kernels.launch_counts
 
 
 def expect_launches(phase, got, frame_window, overlap_add, stem=0,
-                    stem_wgrad=0, bn=0):
+                    stem_wgrad=0, bn=0, conv=0, conv_wgrad=0):
     """``got`` equal to the given launches of each kernel: the motion
-    stem's pair launches only where a bfloat16 motion net runs, and its
-    BatchNorm's pair (``bn`` each) only where one trains."""
+    stem's pair and its 3x1x1 convolution (``conv``: forwards and input
+    gradients) launch only where a bfloat16 motion net runs, and its
+    BatchNorm's pair (``bn`` each) and the convolution's weight gradient
+    only where one trains."""
     want = {"frame_window": frame_window,
             "overlap_add_normalize": overlap_add, "motion_stem": stem,
             "motion_stem_wgrad": stem_wgrad, "motion_bn": bn,
-            "motion_bn_backward": bn}
+            "motion_bn_backward": bn, "motion_conv_t3": conv,
+            "motion_conv_t3_wgrad": conv_wgrad}
     if got != want:
         raise AssertionError(f"{phase}: launches {got}, expected {want}")
 
@@ -2553,9 +2687,11 @@ def run_clipatt_train(dev, dtype="float32", arch="slowfast_fast"):
     frame_window twice per step, finite losses, an AV step leaves the frame
     net and group bit for bit, an AO step the frame and motion nets and
     groups; in bfloat16 the motion stem's pair twice per AV step (one per
-    source) and never in an AO step, in float32 never, and its BatchNorm
-    pair 2 x 53 times per AV step (2 x 106 with the slow pathway), else
-    never; with the slow pathway, each slow stage's input channels-last-3d
+    source) and never in an AO step, in float32 never, its BatchNorm
+    pair 2 x 53 times per AV step (2 x 106 with the slow pathway), and its
+    3x1x1 convolution 2 x 2 x 16 times (forward and input gradient of the
+    fast pathway's conv1s) and their weight gradient 2 x 16, else never;
+    with the slow pathway, each slow stage's input channels-last-3d
     and dense; then one profiled AV step."""
     slow = arch == "slowfast_r50"
     phase = "slowfast_train_bf16" if slow else \
@@ -2597,7 +2733,9 @@ def run_clipatt_train(dev, dtype="float32", arch="slowfast_fast"):
         per_step.append(n1["frame_window"] - n0["frame_window"])
         motion_per_step.append([n1[k] - n0[k] for k in MOTION_KERNELS])
         motion_want.append([2 * (av and bf16)] * 2
-                         + [2 * norms * (av and bf16)] * 2)
+                           + [2 * norms * (av and bf16)] * 2
+                           + [4 * MOTION_T3S * (av and bf16),
+                              2 * MOTION_T3S * (av and bf16)])
         losses += [float(m["err"]), float(m["match_loss"])]
         frozen.append(unchanged(state, snap))
     launches = read_launches()
@@ -2837,7 +2975,10 @@ def cli_clipatt(decode):
     results.csv row per clip and branch, 2 launches per train step and
     3 + 1 per eval step, the motion stem's forward 2 per AV train or eval
     step and its weight gradient 2 per AV train step, the motion net's
-    BatchNorm pair 2 x 53 per AV train step and none in eval, TF32 off."""
+    BatchNorm pair 2 x 53 per AV train step and none in eval, its 3x1x1
+    convolution 2 x 16 per AV eval step and 2 x 2 x 16 per AV train step
+    (forward and input gradient), their weight gradient 2 x 16 per AV
+    train step, TF32 off."""
     manifest = os.path.join("data", "mini", "train.csv")
     argv = ["--mode", "train"] + script_flags("train_MUSIC.sh") + [
         "--fusion_type", "CoLoc_ClipAtt", "--load_clips", "--frame_decode",
@@ -2875,7 +3016,9 @@ def cli_clipatt(decode):
     expect_launches("cli_clipatt", launches,
                     2 * CLI_CLIPATT_ITERS + 3 * eval_steps, eval_steps,
                     2 * av_iters + eval_steps, 2 * av_iters,
-                    2 * MOTION_BNS * av_iters)
+                    2 * MOTION_BNS * av_iters,
+                    4 * MOTION_T3S * av_iters + MOTION_T3S * eval_steps,
+                    2 * MOTION_T3S * av_iters)
     emit("cli_clipatt", argv=argv, batch=cfg.batch_size, dtype=cfg.dtype,
          clip_len=cfg.clip_len, frame_decode=route[0],
          iterations=CLI_CLIPATT_ITERS, eval_steps=eval_steps, clips=n,
@@ -4308,6 +4451,7 @@ def main() -> int:
     rows += check_motion_stem(dev, flush)
     rows += check_motion_bn(dev, flush)
     check_motion_bn(dev, flush, slowfast=True)
+    rows += check_motion_conv_t3(dev, flush)
     check_slowfast_pathways(dev)
     del flush
 
@@ -4404,8 +4548,8 @@ def main() -> int:
 
 
 def kernel_phase_only(check):
-    """A kernel phase alone (motion_stem, motion_bn); it runs no main
-    path, so it counts no launches."""
+    """A kernel phase alone (motion_stem, motion_bn, motion_conv_t3); it
+    runs no main path, so it counts no launches."""
     def run():
         dev = torch.device(DEVICE)
         flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
@@ -4433,22 +4577,23 @@ def only(argv) -> int:
     or more cards (its part (c)); ``--only proof_tools`` the same with the
     proof_tools phase (without the train phase's rates), ``--only
     measure_tools`` with the measure_tools phase, ``--only trace_tools``
-    with the trace_tools phase, ``--only motion_stem`` and ``--only
-    motion_bn`` with the motion net's kernel phases, ``--only
-    slowfast_train_bf16`` with that train phase; then the launches by
-    path."""
+    with the trace_tools phase, ``--only motion_stem``, ``--only
+    motion_bn`` and ``--only motion_conv_t3`` with the motion net's kernel
+    phases, ``--only slowfast_train_bf16`` with that train phase; then the
+    launches by path."""
     phases = {"cli_launch": cli_launch,
               "proof_tools": lambda: proof_tools(torch.device(DEVICE)),
               "measure_tools": lambda: measure_tools(torch.device(DEVICE)),
               "trace_tools": trace_tools,
               "motion_stem": kernel_phase_only(check_motion_stem),
               "motion_bn": kernel_phase_only(check_motion_bn),
+              "motion_conv_t3": kernel_phase_only(check_motion_conv_t3),
               "slowfast_train_bf16": slowfast_only}
     if len(argv) != 1 or argv[0] not in phases or \
             not torch.cuda.is_available():
         print("chip_smoke --only: cli_launch, proof_tools, measure_tools, "
-              "trace_tools, motion_stem, motion_bn or slowfast_train_bf16, "
-              "on a GPU",
+              "trace_tools, motion_stem, motion_bn, motion_conv_t3 or "
+              "slowfast_train_bf16, on a GPU",
               file=sys.stderr)
         return 2
     engine.full_float32()
