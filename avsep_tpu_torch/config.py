@@ -130,8 +130,9 @@ class Config:
     demo_mode: str = "vis"
     # the motion net under --load_clips (models/motion.ARCH_MOTIONS):
     # "slowfast_fast", the SlowFast fast pathway alone as the reference's
-    # build_motion runs it, or "slowfast_r50", both pathways with their
-    # lateral connections and a 3x3 fc to vis_channels
+    # build_motion runs it, "slowfast_r50", both pathways with their
+    # lateral connections and a 3x3 fc to vis_channels, or "x3d_m", X3D-M
+    # (models/x3d.py) and a 3x3 fc to vis_channels
     arch_motion: str = "slowfast_fast"
     # the nets' compute dtype (DTYPES): "float32", or "bfloat16" for the
     # convolutions and BatchNorm outputs with float32 parameters, statistics,

@@ -14,6 +14,7 @@ from avsep_tpu_torch.models.motion import (
     ARCH_MOTIONS, ResNet3dFastOnly, ResNet3dSlowFast)
 from avsep_tpu_torch.models.resnet import FrameEncoder, TinyConvEncoder
 from avsep_tpu_torch.models.unet import AudioUnet
+from avsep_tpu_torch.models.x3d import X3D
 
 
 def activate(x: torch.Tensor, activation: str,
@@ -85,10 +86,13 @@ class ModelBuilder:
         """``slowfast_fast``: the SlowFast fast pathway at base 8, ``[3, 4,
         6, 3]`` (reference models/__init__.py:94-118), whose 256 channels
         are the map; ``slowfast_r50``: both pathways with their laterals,
-        projected to ``fc_dim`` channels."""
+        projected to ``fc_dim`` channels; ``x3d_m``: X3D-M, projected to
+        ``fc_dim`` channels (``models/x3d.py``)."""
         if arch == "slowfast_fast":
             return ResNet3dFastOnly(dtype=dtype)
         if arch == "slowfast_r50":
             return ResNet3dSlowFast(fc_dim=fc_dim, dtype=dtype)
+        if arch == "x3d_m":
+            return X3D(fc_dim=fc_dim, dtype=dtype)
         raise ValueError(f"Architecture undefined! --arch_motion {arch!r}: "
                          f"one of {ARCH_MOTIONS}")

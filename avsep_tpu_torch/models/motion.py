@@ -53,8 +53,9 @@ from avsep_tpu_torch.ops.imagenet import normalize_frames
 from avsep_tpu_torch.parallel.distributed import world_size
 from avsep_tpu_torch.utils import spans
 
-# --arch_motion: the fast pathway alone, or SlowFast R50 whole
-ARCH_MOTIONS = ("slowfast_fast", "slowfast_r50")
+# --arch_motion: the fast pathway alone, SlowFast R50 whole, or X3D-M
+# (models/x3d.py)
+ARCH_MOTIONS = ("slowfast_fast", "slowfast_r50", "x3d_m")
 # SlowFast R50 (mmaction2's slowfast_r50 4x16): the slow pathway reads 1
 # frame in SPEED_RATIO, which is the laterals' temporal stride too; the
 # laterals' temporal kernel; the slow stages whose conv1 is 3x1x1
@@ -69,10 +70,12 @@ def _bn(features: int, dtype: torch.dtype) -> BatchNorm:
 
 def bn_kernel_applies(bn: BatchNorm) -> bool:
     """Whether ``bn`` runs as ``kernels.motion_bn``: in bfloat16, in train
-    mode, on one rank.  Eval mode keeps ``F.batch_norm``, a process group
-    the global statistics, the float32 net its modules."""
+    mode, on one rank, at a width the kernels take
+    (``kernels.motion_bn_fits``: whole groups of 8 channels; X3D-M's 54
+    and 108 are not).  Eval mode keeps ``F.batch_norm``, a process group
+    the global statistics, the float32 net and other widths its modules."""
     return bn.compute_dtype == torch.bfloat16 and bn.training and \
-        world_size() == 1
+        world_size() == 1 and kernels.motion_bn_fits(bn.num_features)
 
 
 def bn_act(bn: BatchNorm, x: torch.Tensor, relu: bool = True,

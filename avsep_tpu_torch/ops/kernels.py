@@ -523,6 +523,13 @@ _BN_ROWS_PER_THREAD = 4
 _BN_MAX_CHANNELS = 8 * _BN_THREADS
 
 
+def motion_bn_fits(channels: int) -> bool:
+    """Whether the kernels take a BatchNorm of ``channels``: whole 16-byte
+    groups of 8 bfloat16 channels, at most :data:`_BN_MAX_CHANNELS` (a
+    thread a group, a row read by at most one block of threads)."""
+    return channels % 8 == 0 and 0 < channels <= _BN_MAX_CHANNELS
+
+
 def motion_bn_plan(rows: int, channels: int):
     """``(rows_per_block, blocks)`` of the motion_bn kernels: a block
     reads ``256 // (channels // 8)`` rows an iteration (a thread a 16-byte
@@ -586,7 +593,7 @@ def _motion_bn_cuda(x, weight, bias, eps, relu, residual=None):
     for name, t in (("x", x), ("residual", residual)):
         if t is not None:
             _check_bn_cuda(name, t)
-    if C % 8 or C > _BN_MAX_CHANNELS:
+    if not motion_bn_fits(C):
         raise ValueError(f"motion_bn kernel takes a multiple of 8 channels "
                          f"up to {_BN_MAX_CHANNELS}, got {C}")
     if x.numel() > _INT32_MAX:

@@ -46,6 +46,12 @@ The train step's names, which the benchmark's readers key on:
                        ``train.motion``
 ``motion.slow_frames`` counter: SlowFast R50's slow frames, every 8th of
                        each clip (also counted by a replayed step)
+``motion.channelwise`` X3D-M (``--arch_motion x3d_m``): each channelwise
+                       convolution with its BatchNorm (the stem's 5x1x1
+                       and each block's 3x3x3), inside ``train.motion``
+``motion.se``          X3D-M: each block's squeeze-excitation gate with the
+                       swish after it (the swish alone in a block without
+                       a gate), inside ``train.motion``
 ``train.backward``,    the rest of the step, inside ``train.step``
 ``train.grad_mean``,
 ``train.update``,

@@ -48,6 +48,10 @@ script exits non-zero before printing any result.
    motion_bn_slowfast: the same at SlowFast R50's 106 BatchNorm calls (the
    slow pathway's 64 to 2048 channels on 4 frames beside the fast
    pathway's), 2 x 106 per AV step.
+   motion_bn_x3d: the same at the 68 BatchNorm calls of X3D-M the kernels
+   take (16 clips of 16 x 224 x 224; 24 to 432 channels, 3 to 54 threads
+   a row; each block's bn2 without a ReLU or residual), 2 x 68 per AV
+   step.
    motion_conv_t3: the motion net's bfloat16 3x1x1 convolution kernels
    (forward, input gradient through the reversed taps, weight gradient)
    against their plain version on the card at each of the fast pathway's
@@ -64,6 +68,12 @@ script exits non-zero before printing any result.
    frames taken from frame 1 each read above it on the slow and pooled
    maps and within it on the fast map; the bfloat16 net read beside the
    reference's own bfloat16.
+   x3d_pathway: X3D-M in train mode on 16 clips of 16 x 224 x 224 against
+   benchmark/reference/x3d.py in float32 (the map after conv5, the pooled
+   map): within X3D_TOL; every gate fixed at 1, or the channelwise
+   convolutions' off-centre temporal taps zeroed, each read above it; the
+   bfloat16 net read beside the reference's own bfloat16.  ``python3
+   chip_smoke.py --only x3d_pathway`` runs it alone.
 4. separate: the flagship configuration of bench.py (unet7,
    resnet18dilated-256, hidsep/sig fusion, log-frequency warp, binary
    masks, dft "matmul") at full width through ``engine.separate``, B = 16,
@@ -188,6 +198,12 @@ script exits non-zero before printing any result.
    never per AO step; each slow stage's input channels-last-3d and dense.
    ``python3 chip_smoke.py --only slowfast_train_bf16`` runs it alone,
    after motion_bn_slowfast and slowfast_pathways (phase 3).
+   x3d_train_bf16: clipatt_train_bf16 with ``--arch_motion x3d_m`` (X3D-M,
+   16-frame clips): the BatchNorm pair 2 x 68 times per AV step (every
+   norm but the 16 of 54 and 108 channels), no stem or 3x1x1 launch, none
+   per AO step; every convolution's input but the gates' channels-last-3d
+   and dense, the outputs in another layout named.  ``python3
+   chip_smoke.py --only x3d_train_bf16`` runs it after motion_bn_x3d.
    clipatt_eval: AV and AO eval steps with clips (eval_MUSIC.sh +
    CoLoc_ClipAtt, B = 16, float32): ms per step, 3 + 1 launches per step,
    no stem launch.
@@ -305,6 +321,7 @@ import subprocess
 import sys
 import threading
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -861,16 +878,19 @@ def motion_bn_bytes(n: int, relu: bool, res: bool):
     return (2 + 4 + 2 * res) * n, (4 + mask + 6 + mask + 2 * res) * n
 
 
-def check_motion_bn(dev, flush, slowfast: bool = False):
+def check_motion_bn(dev, flush, arch: str = "slowfast_fast"):
     """``kernels.motion_bn`` and ``motion_bn_backward`` at every BatchNorm
-    call of the motion net at the clips cell (phase ``motion_bn``: one
-    source's 16 clips of 32 x 224 x 224, 53 calls, 16 distinct; with
-    ``slowfast``, phase ``motion_bn_slowfast``: SlowFast R50's 106 calls,
-    the slow pathway's 64 to 2048 channels on 4 frames beside the fast
-    pathway's), each against its plain version within the tolerances of
-    tests/test_torch_motion_bn.py, and two calls bit for bit; then the
-    times of each distinct call, summed per AV step (2 sources x 53 or 106
-    calls): the kernels, their byte bound, the plain version (BatchNorm,
+    call of the motion net ``arch`` that takes them (phase ``motion_bn``:
+    the fast pathway at the clips cell, one source's 16 clips of 32 x 224 x
+    224, 53 calls, 16 distinct; ``slowfast_r50``, phase
+    ``motion_bn_slowfast``: SlowFast R50's 106 calls, the slow pathway's 64
+    to 2048 channels on 4 frames beside the fast pathway's; ``x3d_m``,
+    phase ``motion_bn_x3d``: X3D-M's 68 calls of whole 8-channel groups at
+    16 clips of 16 x 224 x 224, 24 to 432 channels, each block's ``bn2``
+    without a ReLU), each against its plain version within the tolerances
+    of tests/test_torch_motion_bn.py, and two calls bit for bit; then the
+    times of each distinct call, summed per AV step (2 sources x 53, 106 or
+    68 calls): the kernels, their byte bound, the plain version (BatchNorm,
     the add and the ReLU as the net ran them, forward; autograd through
     them, backward) and ``F.batch_norm`` alone with its autograd backward
     (``library_ms``), each a CUDA graph's replay (:func:`graphed_ms`), as
@@ -882,12 +902,15 @@ def check_motion_bn(dev, flush, slowfast: bool = False):
         ResNet3dFastOnly, ResNet3dSlowFast)
     from tests.test_torch_motion_bn import (
         activation, bn_module, bn_shapes, errors_over_tolerance,
-        output_grad)
-    phase = "motion_bn_slowfast" if slowfast else "motion_bn"
-    norms = MOTION_BNS * (2 if slowfast else 1)
-    B, T, H, W = STEM_CLIPS
-    calls = bn_shapes(B, T, H, W,
-                      ResNet3dSlowFast if slowfast else ResNet3dFastOnly)
+        output_grad, x3d_cases)
+    phase, norms = {"slowfast_fast": ("motion_bn", MOTION_BNS),
+                    "slowfast_r50": ("motion_bn_slowfast", 2 * MOTION_BNS),
+                    "x3d_m": ("motion_bn_x3d", X3D_BNS)}[arch]
+    if arch == "x3d_m":
+        calls = [c for c in x3d_cases() if kernels.motion_bn_fits(c[1][1])]
+    else:
+        calls = bn_shapes(*STEM_CLIPS, ResNet3dSlowFast
+                          if arch == "slowfast_r50" else ResNet3dFastOnly)
     cases = {}
     for _, shape, relu, res in calls:
         cases[(shape, relu, res)] = cases.get((shape, relu, res), 0) + 1
@@ -1140,12 +1163,18 @@ def port_maps(net, clips):
         return net(x) + (torch.relu(net.pooled_map(x)),)
 
 
-def pathway_errors(got, want):
-    """Per map (``slow``, ``fast``, ``pooled``): the norm of the difference
-    over the norm of ``want``."""
+def map_errors(got, want, names=("map", "pooled")):
+    """Per map of ``names``: the norm of the difference over the norm of
+    ``want``."""
     return {k: float(torch.linalg.vector_norm(g.float() - r.float())
                      / torch.linalg.vector_norm(r.float()))
-            for k, g, r in zip(("slow", "fast", "pooled"), got, want)}
+            for k, g, r in zip(names, got, want)}
+
+
+def pathway_errors(got, want):
+    """:func:`map_errors` of SlowFast's ``slow``, ``fast`` and ``pooled``
+    maps."""
+    return map_errors(got, want, ("slow", "fast", "pooled"))
 
 
 def check_slowfast_pathways(dev, shape=STEM_CLIPS):
@@ -1201,6 +1230,113 @@ def check_slowfast_pathways(dev, shape=STEM_CLIPS):
         raise AssertionError(
             f"slowfast_pathways: SlowFast R50 against the reference "
             f"(tolerance {PATHWAY_TOL}): {readings}")
+    return readings
+
+
+# X3D-M in float32 against the plain reference in float32: the norm of
+# each map's difference over the reference's norm may reach this (the
+# sound net's readings and those of the two faults below: PERF.md)
+X3D_TOL = 1e-2
+# X3D-M's clips: one source's 16 clips of 16 frames at 224 x 224
+X3D_CLIPS = (16, 16, 224, 224)
+# X3D-M's BatchNorm calls per clip batch that take kernels.motion_bn: 68
+# of its 84, all but the inner norms of the first two stages (54 and 108
+# channels, not whole groups of 8: kernels.motion_bn_fits)
+X3D_BNS = 68
+
+
+@contextlib.contextmanager
+def x3d_fault(kind: str):
+    """A fault confined to X3D's own mechanism, in force inside the block:
+    ``se_one``, every squeeze-excitation gate fixed at 1; ``taps_zeroed``,
+    the channelwise convolutions' temporal taps other than the centre one
+    zeroed in the forward (the stem's 5x1x1 then reads one frame, each
+    3x3x3 its own frame)."""
+    from avsep_tpu_torch.models import x3d
+    from avsep_tpu_torch.models.layers import Conv3d
+    if kind == "se_one":
+        owner, name = x3d.SEModule, "forward"
+
+        def faulty(self, y):
+            return y
+    elif kind == "taps_zeroed":
+        owner, name = Conv3d, "_conv_forward"
+        conv_forward = Conv3d._conv_forward
+
+        def faulty(self, x, weight, bias):
+            k = weight.shape[2]
+            if self.groups > 1 and k > 1:
+                # made on the weight's device with no host copy, so that
+                # it holds inside a CUDA graph's capture too
+                mask = torch.arange(k, device=weight.device) == k // 2
+                weight = weight * mask.to(weight.dtype).view(1, 1, k, 1, 1)
+            return conv_forward(self, x, weight, bias)
+    else:
+        raise ValueError(f"x3d_fault: se_one or taps_zeroed, not {kind!r}")
+    with mock.patch.object(owner, name, faulty):
+        yield
+
+
+def x3d_reference_maps(clips, w, compute: str):
+    """benchmark/reference/x3d.py in ``compute`` with TF32 off on uint8
+    ``clips`` and weights ``w`` (train-mode BatchNorm): the map after
+    ``conv5`` ``[B, 432, T, 7, 7]`` and the pooled map, the ``fc`` of its
+    time mean after the ReLU."""
+    from benchmark.reference import nets as rnets
+    from benchmark.reference import x3d as rx3d
+    P = rnets.Precision(compute)
+    with torch.no_grad(), rnets.tf32(False):
+        return (rx3d.backbone(rnets.normalize_frames(clips), w, P, True,
+                              pre=""),
+                rx3d.x3d_map(clips, w, P, True, pre=""))
+
+
+def x3d_port_maps(net, clips):
+    """X3D ``net`` (train mode) on uint8 ``clips``, TF32 off: the maps of
+    :func:`x3d_reference_maps`."""
+    from benchmark.reference import nets as rnets
+    x = engine.normalize_frames(clips)
+    with torch.no_grad(), rnets.tf32(False):
+        return net(x), torch.relu(net.pooled_map(x))
+
+
+def check_x3d_pathway(dev, shape=X3D_CLIPS):
+    """Phase ``x3d_pathway``: X3D-M in train mode on one source's 16 seeded
+    clips of 16 x 224 x 224 against the plain reference in float32, the
+    map after ``conv5`` and the pooled map (:func:`map_errors`).  The
+    float32 net holds both within X3D_TOL; with either fault of
+    :func:`x3d_fault` in force, both read above it.  The bfloat16 net
+    (``motion_bn``) on the same weights is read beside the reference's
+    own bfloat16, as in ``slowfast_pathways``.  Returns the readings."""
+    from avsep_tpu_torch.models.builder import ModelBuilder
+    nets = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        net = ModelBuilder.build_motion("x3d_m", dtype)
+        net.reset_parameters_(torch.Generator().manual_seed(SEED))
+        nets[dtype] = net.to(dev).train()
+    net = nets[torch.float32]
+    w = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    B, T, H, W = shape
+    clips = torch.randint(0, 256, (B, T, H, W, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(SEED + 13)
+                          ).to(dev)
+    want = x3d_reference_maps(clips, w, "float32")
+    readings = {"sound": map_errors(x3d_port_maps(net, clips), want)}
+    for kind in ("se_one", "taps_zeroed"):
+        with x3d_fault(kind):
+            readings[kind] = map_errors(x3d_port_maps(net, clips), want)
+    readings["bfloat16"] = map_errors(
+        x3d_port_maps(nets[torch.bfloat16], clips), want)
+    readings["reference_bfloat16"] = map_errors(
+        x3d_reference_maps(clips, w, "bfloat16"), want)
+    emit("x3d_pathway", clips=list(shape), tolerance=X3D_TOL,
+         readings=readings, nvidia_smi=nvidia_smi_line()
+         if torch.cuda.is_available() else None)
+    if max(readings["sound"].values()) > X3D_TOL or any(
+            min(readings[k].values()) <= X3D_TOL
+            for k in ("se_one", "taps_zeroed")):
+        raise AssertionError(f"x3d_pathway: X3D-M against the reference "
+                             f"(tolerance {X3D_TOL}): {readings}")
     return readings
 
 
@@ -2677,6 +2813,30 @@ def slow_stage_layouts(net, batch):
     return seen
 
 
+def x3d_layouts(net, batch):
+    """Per convolution of X3D ``net`` but the gates' (whose ``[B, C, 1, 1,
+    1]`` maps have no layout), whether its input and its output are
+    channels-last-3d and dense, in one train-mode forward of the first
+    source's clips without a gradient, the running statistics left as
+    they are: ``{name: [input, output]}``."""
+    from avsep_tpu_torch.models.layers import Conv3d, running_stats_frozen
+    cl = torch.channels_last_3d
+    seen, hooks = {}, []
+    for name, m in net.named_modules():
+        if isinstance(m, Conv3d) and ".se_module." not in f".{name}.":
+            hooks.append(m.register_forward_hook(
+                lambda m, args, out, name=name: seen.__setitem__(
+                    name, [args[0].is_contiguous(memory_format=cl),
+                           out.is_contiguous(memory_format=cl)])))
+    try:
+        with torch.no_grad(), running_stats_frozen():
+            net.pooled_map(engine.normalize_frames(batch["clips"][:, 0]))
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
 def run_clipatt_train(dev, dtype="float32", arch="slowfast_fast"):
     """scripts/train_MUSIC.sh's flags with ``--fusion_type CoLoc_ClipAtt
     --load_clips`` on one card at full width in ``dtype`` (phase
@@ -2692,13 +2852,20 @@ def run_clipatt_train(dev, dtype="float32", arch="slowfast_fast"):
     3x1x1 convolution 2 x 2 x 16 times (forward and input gradient of the
     fast pathway's conv1s) and their weight gradient 2 x 16, else never;
     with the slow pathway, each slow stage's input channels-last-3d
-    and dense; then one profiled AV step."""
-    slow = arch == "slowfast_r50"
-    phase = "slowfast_train_bf16" if slow else \
-        "clipatt_train" if dtype == "float32" else "clipatt_train_bf16"
+    and dense; with ``arch`` ``x3d_m`` (phase ``x3d_train_bf16``, 16-frame
+    clips) 2 x 68 BatchNorm launches per AV step and no stem or 3x1x1
+    launch, every convolution's input but the gates' channels-last-3d and
+    dense (the outputs in another layout named); then one profiled AV
+    step."""
+    slow, x3d = arch == "slowfast_r50", arch == "x3d_m"
+    phase = "slowfast_train_bf16" if slow else "x3d_train_bf16" if x3d \
+        else "clipatt_train" if dtype == "float32" else "clipatt_train_bf16"
     bf16 = dtype != "float32"
-    cfg = Config(**CLIPATT, dtype=dtype, arch_motion=arch)
-    norms = MOTION_BNS * (2 if slow else 1)
+    cfg = Config(**{**CLIPATT, "clip_len": X3D_CLIPS[1] if x3d
+                    else CLIPATT["clip_len"]}, dtype=dtype, arch_motion=arch)
+    # per clip batch: the stem's kernel calls, motion_bn's, motion_conv_t3's
+    stems, norms, t3s = (0, X3D_BNS, 0) if x3d else \
+        (1, MOTION_BNS * (2 if slow else 1), MOTION_T3S)
     state = train.init_state(cfg, engine.build_nets(cfg),
                              torch.Generator().manual_seed(SEED))
     steps = {v: train.make_train_step(cfg, state.nets, v)
@@ -2732,10 +2899,10 @@ def run_clipatt_train(dev, dtype="float32", arch="slowfast_fast"):
         n1 = read_launches()
         per_step.append(n1["frame_window"] - n0["frame_window"])
         motion_per_step.append([n1[k] - n0[k] for k in MOTION_KERNELS])
-        motion_want.append([2 * (av and bf16)] * 2
+        motion_want.append([2 * stems * (av and bf16)] * 2
                            + [2 * norms * (av and bf16)] * 2
-                           + [4 * MOTION_T3S * (av and bf16),
-                              2 * MOTION_T3S * (av and bf16)])
+                           + [4 * t3s * (av and bf16),
+                              2 * t3s * (av and bf16)])
         losses += [float(m["err"]), float(m["match_loss"])]
         frozen.append(unchanged(state, snap))
     launches = read_launches()
@@ -2761,13 +2928,26 @@ def run_clipatt_train(dev, dtype="float32", arch="slowfast_fast"):
     if layouts is not None and not all(layouts.values()):
         raise AssertionError(f"{phase}: a slow stage's input is not "
                              f"channels-last-3d and dense: {layouts}")
+    conv_layouts = x3d_layouts(state.nets.motion, batches[0]) if x3d \
+        else None
+    if conv_layouts is not None and not all(
+            i for i, _ in conv_layouts.values()):
+        raise AssertionError(
+            f"{phase}: a convolution's input is not channels-last-3d and "
+            f"dense: {conv_layouts}")
     net = ("SlowFast R50: slow base 64 on every 8th frame, fast base 8, "
-           "5x1x1 laterals, fc to 256" if slow else "fast pathway base 8")
+           "5x1x1 laterals, fc to 256, [3, 4, 6, 3]" if slow else
+           "X3D-M: base 24, inner x2.25, [3, 5, 11, 7], SE in every other "
+           "block, swish, conv5 to 432, fc to 256" if x3d else
+           "fast pathway base 8, [3, 4, 6, 3]")
     emit(phase, config="scripts/train_MUSIC.sh + --fusion_type "
          f"CoLoc_ClipAtt --load_clips --arch_motion {arch} on one card "
-         f"(unet7, {net}, [3, 4, 6, 3], clip_len {cfg.clip_len} at "
+         f"(unet7, {net}, clip_len {cfg.clip_len} at "
          f"224x224, {dtype}, TF32 off, dft matmul)", batch=B, batch_cut=None,
          slow_stage_inputs_channels_last=layouts,
+         convolutions=None if conv_layouts is None else len(conv_layouts),
+         outputs_not_channels_last=None if conv_layouts is None
+         else sorted(k for k, (_, o) in conv_layouts.items() if not o),
          steps=CLIPATT_STEPS, ms_per_av_step=float(np.median(times[True])),
          ms_per_ao_step=float(np.median(times[False])),
          av_step_ms=times[True], ao_step_ms=times[False],
@@ -4450,9 +4630,11 @@ def main() -> int:
     check_ragged(dev, gen)
     rows += check_motion_stem(dev, flush)
     rows += check_motion_bn(dev, flush)
-    check_motion_bn(dev, flush, slowfast=True)
+    check_motion_bn(dev, flush, "slowfast_r50")
+    check_motion_bn(dev, flush, "x3d_m")
     rows += check_motion_conv_t3(dev, flush)
     check_slowfast_pathways(dev)
+    check_x3d_pathway(dev)
     del flush
 
     sep_launches, nets, flagship = run_flagship(dev, gen)
@@ -4493,9 +4675,11 @@ def main() -> int:
     launches["clipatt_train_bf16"] = run_clipatt_train(dev, "bfloat16")
     launches["slowfast_train_bf16"] = run_clipatt_train(dev, "bfloat16",
                                                         "slowfast_r50")
+    launches["x3d_train_bf16"] = run_clipatt_train(dev, "bfloat16", "x3d_m")
     calls.update(clipatt_train=CLIPATT_STEPS,
                  clipatt_train_bf16=CLIPATT_STEPS,
                  slowfast_train_bf16=CLIPATT_STEPS,
+                 x3d_train_bf16=CLIPATT_STEPS,
                  clipatt_eval=2 * CLIPATT_EVAL_STEPS)
     launches["clipatt_eval"] = run_clipatt_eval(dev)
     clipatt_card_vs_cpu(dev, torch.Generator().manual_seed(SEED))
@@ -4563,12 +4747,30 @@ def slowfast_only():
     and slowfast_train_bf16; the last one's launches and its steps."""
     dev = torch.device(DEVICE)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
-    check_motion_bn(dev, flush, slowfast=True)
+    check_motion_bn(dev, flush, "slowfast_r50")
     del flush
     check_slowfast_pathways(dev)
     launches = run_clipatt_train(dev, "bfloat16", "slowfast_r50")
     return ({"slowfast_train_bf16": launches},
             {"slowfast_train_bf16": CLIPATT_STEPS})
+
+
+def x3d_train_only():
+    """X3D-M's BatchNorm kernels at its shapes (motion_bn_x3d), then its
+    train phase: x3d_train_bf16's launches and its steps."""
+    dev = torch.device(DEVICE)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    check_motion_bn(dev, flush, "x3d_m")
+    del flush
+    launches = run_clipatt_train(dev, "bfloat16", "x3d_m")
+    return ({"x3d_train_bf16": launches}, {"x3d_train_bf16": CLIPATT_STEPS})
+
+
+def x3d_pathway_only():
+    """X3D-M's float32 net against the reference alone; it runs no main
+    path, so it counts no launches."""
+    check_x3d_pathway(torch.device(DEVICE))
+    return {}, {}
 
 
 def only(argv) -> int:
@@ -4579,8 +4781,9 @@ def only(argv) -> int:
     measure_tools`` with the measure_tools phase, ``--only trace_tools``
     with the trace_tools phase, ``--only motion_stem``, ``--only
     motion_bn`` and ``--only motion_conv_t3`` with the motion net's kernel
-    phases, ``--only slowfast_train_bf16`` with that train phase; then the
-    launches by path."""
+    phases, ``--only slowfast_train_bf16`` with that train phase, ``--only
+    x3d_pathway`` and ``--only x3d_train_bf16`` with X3D-M's phases; then
+    the launches by path."""
     phases = {"cli_launch": cli_launch,
               "proof_tools": lambda: proof_tools(torch.device(DEVICE)),
               "measure_tools": lambda: measure_tools(torch.device(DEVICE)),
@@ -4588,12 +4791,14 @@ def only(argv) -> int:
               "motion_stem": kernel_phase_only(check_motion_stem),
               "motion_bn": kernel_phase_only(check_motion_bn),
               "motion_conv_t3": kernel_phase_only(check_motion_conv_t3),
-              "slowfast_train_bf16": slowfast_only}
+              "slowfast_train_bf16": slowfast_only,
+              "x3d_pathway": x3d_pathway_only,
+              "x3d_train_bf16": x3d_train_only}
     if len(argv) != 1 or argv[0] not in phases or \
             not torch.cuda.is_available():
         print("chip_smoke --only: cli_launch, proof_tools, measure_tools, "
-              "trace_tools, motion_stem, motion_bn, motion_conv_t3 or "
-              "slowfast_train_bf16, on a GPU",
+              "trace_tools, motion_stem, motion_bn, motion_conv_t3, "
+              "slowfast_train_bf16, x3d_pathway or x3d_train_bf16, on a GPU",
               file=sys.stderr)
         return 2
     engine.full_float32()

@@ -14,8 +14,9 @@ to the ``train.motion`` span as stretch M attributes kernels.
 On a card (the ``cuda`` marker; each test skips without one) the kernels
 against the plain version on the card at every BatchNorm shape of the net
 at 16 clips of 32 x 224 x 224, at every slow norm of SlowFast R50 there
-(64 to 2048 channels), at ragged row counts and at C = 8, 24 and
-256; two calls bit for bit; and bfloat16 clips steps captured in a CUDA
+(64 to 2048 channels), at every norm of X3D-M the kernels take at 16
+clips of 16 x 224 x 224 (24 to 432 channels), at ragged row counts and
+at C = 8, 24 and 256; two calls bit for bit; and bfloat16 clips steps captured in a CUDA
 graph advance the counters.  The file imports torch, the port and the
 graph tests' helpers only, so the card's machine, which has no JAX, runs
 it:
@@ -54,6 +55,7 @@ from avsep_tpu_torch import engine
 from avsep_tpu_torch.config import Config
 from avsep_tpu_torch.models import layers, motion
 from avsep_tpu_torch.models.motion import ResNet3dFastOnly, ResNet3dSlowFast
+from avsep_tpu_torch.models.x3d import X3D
 from avsep_tpu_torch.ops import kernels
 from avsep_tpu_torch.utils import spans
 from tests.test_torch_motion_stem import clip_cases, graphed_clip_steps
@@ -293,6 +295,43 @@ def test_plan_launches_two_waves_at_every_shape_of_the_cell():
         kernels._BN_BLOCKS
 
 
+def x3d_cases():
+    """X3D-M's BatchNorm calls at 16 clips of 16 x 224 x 224 as
+    :func:`bn_shapes` gives them, each block's ``bn2`` without its ReLU
+    (the gate follows it): ``[(name, shape, relu, residual)]``."""
+    return [(name, shape, relu and not name.endswith(".bn2"), res)
+            for name, shape, relu, res in bn_shapes(16, 16, 224, 224, X3D)]
+
+
+def test_x3d_takes_the_kernels_at_every_whole_group_width():
+    """X3D-M's 84 norms: the 68 of whole 8-channel groups (24 to 432) take
+    the kernels in bfloat16 train mode on one rank and launch at least two
+    waves of 132 SMs, each plan's chunks covering its rows; the 16 inner
+    norms of the first two stages (54 and 108 channels) keep the module,
+    whose plain path on a card takes any width."""
+    cases = x3d_cases()
+    assert len(cases) == 84
+    with torch.device("meta"):
+        net = X3D(dtype=torch.bfloat16).train()
+    takes = {name: motion.bn_kernel_applies(net.get_submodule(name))
+             for name, *_ in cases}
+    assert sum(takes.values()) == 68
+    assert {shape[1] for name, shape, *_ in cases if not takes[name]} == \
+        {54, 108}
+    for name, shape, _, _ in cases:
+        if not takes[name]:
+            continue
+        rows = shape[0] * shape[2] * shape[3] * shape[4]
+        per_block, blocks = kernels.motion_bn_plan(rows, shape[1])
+        assert (blocks - 1) * per_block < rows <= blocks * per_block
+        assert 2 * 132 <= blocks <= kernels._BN_BLOCKS
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kernels._motion_bn_cuda(
+            torch.empty(2, 54, 1, 1, 1, dtype=torch.bfloat16).to(
+                memory_format=CL), torch.ones(54), torch.zeros(54), 1e-5,
+            True)
+
+
 def test_stretch_m_attributes_the_batchnorm_forward_and_backward():
     """Under ``torch.profiler`` with the span recorder on, a bfloat16
     ``_motion_features`` and its backward: each of the 53 ``motion_bn`` ops
@@ -476,6 +515,9 @@ CELL_CASES = sorted({(s, relu, res) for _, s, relu, res in CELL})
 # one per block iteration)
 SLOW_CASES = sorted({(s, relu, res) for name, s, relu, res in bn_shapes(
     16, 32, 224, 224, ResNet3dSlowFast) if name.startswith("slow_path.")})
+# X3D-M at its 16-frame clips: every distinct norm the kernels take
+X3D_CASES = sorted({(s, relu, res) for _, s, relu, res in x3d_cases()
+                    if kernels.motion_bn_fits(s[1])})
 
 
 @pytest.mark.cuda
@@ -506,6 +548,20 @@ def test_kernels_match_plain_at_the_slow_pathways_shapes_on_cuda(
     """SlowFast R50's slow pathway at the cell's clips: every distinct
     BatchNorm call, 64 to 2048 channels, within the tolerances, each sum's
     tolerance under 1e-3 of a typical value."""
+    out, flips, got, _ = _check(cuda_device, shape, relu, res)
+    assert got[0].is_contiguous(memory_format=CL)
+    _assert_within(shape, out, flips, max_share=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,relu,res", X3D_CASES,
+                         ids=[f"{s[1]}x{s[3]}{'_relu' * r}{'_res' * q}"
+                              for s, r, q in X3D_CASES])
+def test_kernels_match_plain_at_x3ds_shapes_on_cuda(cuda_device, shape,
+                                                    relu, res):
+    """X3D-M at 16 clips of 16 x 224 x 224: every distinct BatchNorm call
+    the kernels take, 24 to 432 channels (rows of 3 to 54 threads), within
+    the tolerances, each sum's tolerance under 1e-3 of a typical value."""
     out, flips, got, _ = _check(cuda_device, shape, relu, res)
     assert got[0].is_contiguous(memory_format=CL)
     _assert_within(shape, out, flips, max_share=1e-3)
